@@ -1,0 +1,6 @@
+"""The session API: `Mapper` + `ExecutionConfig`."""
+from repro_torch.engine.config import ExecutionConfig
+from repro_torch.engine.mapper import Mapper
+from repro_torch.engine.stream import StreamResult
+
+__all__ = ["ExecutionConfig", "Mapper", "StreamResult"]

@@ -1,0 +1,188 @@
+"""The `Mapper` session: device-resident index + reference, built once.
+
+``Mapper.build`` (reference -> index -> session) and ``Mapper.from_index``
+(existing index -> session) resolve, exactly once, the kernel backend,
+the ``packed_ref`` flavor (2-bit packing the reference on the device), the
+reference padded for the window kernels and the SeedMap layout the step
+consumes: the CSR map on the staged plain path, the bucket-major
+`PaddedSeedMap` for the CUDA front end.
+
+``mapper.map`` maps one batch; ``mapper.map_stream`` streams batches with
+device-side stage totals and one host sync at the end.  Both are eager
+launches on PyTorch's current stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.encoding import pack_2bit
+from repro_torch.core.pipeline import (
+    MapResult,
+    PipelineConfig,
+    map_pairs_impl,
+    stage_stat_counts,
+)
+from repro_torch.core.seedmap import (
+    PaddedSeedMap,
+    SeedMap,
+    SeedMapConfig,
+    build_seedmap,
+    to_padded,
+)
+from repro_torch.engine.config import ExecutionConfig, resolved_pipeline
+from repro_torch.engine.stats import (
+    add_stage_counts,
+    fetch_stage_totals,
+    init_stage_totals,
+)
+from repro_torch.engine.stream import (
+    StreamResult,
+    pad_tail,
+    run_stream,
+    split_batch,
+    to_device,
+    tree_map,
+)
+from repro_torch.kernels._util import kernel_reference
+
+
+def _as_device(x, device: torch.device, dtype) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+class Mapper:
+    """A reusable paired-end mapping session (index + resolved config).
+
+    Use :meth:`build` / :meth:`from_index`.
+    """
+
+    def __init__(self, *, index, ref: torch.Tensor, pipe_cfg: PipelineConfig,
+                 exec_cfg: ExecutionConfig, device: torch.device,
+                 backend: str):
+        self.index = index           # SeedMap | PaddedSeedMap on `device`
+        self.ref = ref               # uint8 bases or int32 packed words
+        self.pipe_cfg = pipe_cfg     # fully resolved
+        self.exec_cfg = exec_cfg
+        self.device = device
+        self.backend = backend       # "cuda" or "torch"
+        # the reference padded once for both window kernels (CUDA only)
+        width = pipe_cfg.read_len + 2 * max(pipe_cfg.max_gap, pipe_cfg.dp_pad)
+        self.kref = (kernel_reference(ref, width, pipe_cfg.packed_ref)
+                     if backend == "cuda" else None)
+
+    # ------------------------------------------------------------ build --
+    @classmethod
+    def build(cls, ref, seedmap_cfg: SeedMapConfig | None = None,
+              pipe_cfg: PipelineConfig | None = None,
+              exec_cfg: ExecutionConfig | None = None) -> "Mapper":
+        """Offline stage + session build: index ``ref`` on the session's
+        device and resolve."""
+        exec_cfg = exec_cfg or ExecutionConfig()
+        device = exec_cfg.torch_device()
+        ref = _as_device(ref, device, torch.uint8)
+        sm = build_seedmap(ref, seedmap_cfg or SeedMapConfig())
+        return cls.from_index(sm, ref, pipe_cfg, exec_cfg)
+
+    @classmethod
+    def from_index(cls, sm: SeedMap | PaddedSeedMap, ref,
+                   pipe_cfg: PipelineConfig | None = None,
+                   exec_cfg: ExecutionConfig | None = None) -> "Mapper":
+        """Build a session from an existing index and the (L,) uint8
+        reference (or, for a packed session, its int32 2-bit packing).
+
+        A `PaddedSeedMap` is taken as-is and its row width becomes the
+        session's ``max_locs_per_seed``.
+        """
+        exec_cfg = exec_cfg or ExecutionConfig()
+        device = exec_cfg.torch_device()
+        cfg, backend = resolved_pipeline(pipe_cfg or PipelineConfig(),
+                                         exec_cfg)
+        packed_in = isinstance(ref, torch.Tensor) and ref.dtype == torch.int32
+        ref = _as_device(ref, device, torch.int32 if packed_in
+                         else torch.uint8)
+        if cfg.packed_ref:
+            ref_arr = ref if packed_in else pack_2bit(ref)
+        elif packed_in:
+            raise ValueError("packed_ref resolved False but ref holds packed "
+                             "words; pass the uint8 base array")
+        else:
+            ref_arr = ref
+        sm = type(sm)(*(_as_device(x, device, x.dtype)
+                        if isinstance(x, torch.Tensor) else x for x in sm))
+        if isinstance(sm, PaddedSeedMap):
+            cap = int(sm.rows.shape[1])
+            if cap != cfg.max_locs_per_seed:
+                cfg = dataclasses.replace(cfg, max_locs_per_seed=cap)
+            index = sm
+        elif backend == "torch":
+            index = sm            # the staged plain path queries the CSR map
+        else:
+            index = to_padded(sm, cap=cfg.max_locs_per_seed)
+        return cls(index=index, ref=ref_arr, pipe_cfg=cfg, exec_cfg=exec_cfg,
+                   device=device, backend=backend)
+
+    # ------------------------------------------------------------- run ---
+    def _step(self, reads1: torch.Tensor, reads2: torch.Tensor,
+              n) -> MapResult:
+        res = map_pairs_impl(self.index, self.ref, reads1, reads2,
+                             self.pipe_cfg, self.backend, self.kref)
+        B = reads1.shape[0]
+        return res._replace(
+            n_valid=torch.arange(B, device=self.device) < n)
+
+    def map(self, reads1, reads2) -> MapResult:
+        """Map one batch of FR read pairs (``reads2`` as sequenced)."""
+        reads1 = _as_device(reads1, self.device, torch.uint8)
+        reads2 = _as_device(reads2, self.device, torch.uint8)
+        return self._step(reads1, reads2, reads1.shape[0])
+
+    def map_stream(self, batches, on_result=None, reduce_fn=None,
+                   reduce_init=None, warmup_batch=None) -> StreamResult:
+        """Stream ``(reads1, reads2[, aux])`` host batches through the
+        session.
+
+        A ragged tail batch is zero-padded to the stream shape and its
+        padded rows are masked through ``MapResult.n_valid``; they count
+        toward no stage total.  ``reduce_fn(state, res, aux) -> state``
+        runs after each batch (it must mask by ``res.n_valid``).
+        ``warmup_batch`` runs once before the timed stream (it fixes the
+        stream shape when ``stream_batch`` is unset).  ``on_result(idx,
+        res, n_valid)`` sees each result one batch late.
+        """
+        stream_batch = self.exec_cfg.stream_batch
+        dev = self.device
+        totals = init_stage_totals(dev)
+        reduced = reduce_init
+        if warmup_batch is not None:
+            reads, _ = split_batch(warmup_batch)
+            if stream_batch is None:
+                stream_batch = int(np.shape(reads[0])[0])
+            self._step(*(to_device(pad_tail(r, stream_batch), dev)
+                         for r in reads), stream_batch)
+
+        def dispatch(r1, r2, n, aux):
+            nonlocal reduced
+            res = self._step(to_device(r1, dev), to_device(r2, dev), n)
+            add_stage_counts(totals, stage_stat_counts(res))
+            if reduce_fn is not None:
+                reduced = reduce_fn(reduced, res,
+                                    tree_map(lambda a: to_device(a, dev),
+                                             aux))
+            return res
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        n_items, n_batches, seconds, _ = run_stream(
+            dispatch, batches, stream_batch=stream_batch,
+            on_result=on_result, sync=sync)
+        return StreamResult(n_pairs=n_items, n_batches=n_batches,
+                            seconds=seconds,
+                            totals=fetch_stage_totals(totals),
+                            reduced=reduced)

@@ -1,0 +1,189 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+All ``repro_torch/csrc/*.cu`` sources compile with ``nvcc`` for
+``sm_90a`` (one ``nvcc -c`` per source, all started together) and link
+into one shared library with a plain C interface, loaded with `ctypes`.
+The build runs at the first launch in a process, into
+``build/repro_torch/<hash>/`` at the repository root, keyed by a content
+hash of the sources and flags, so each source version builds once and a
+second process loads the library the first one built.  A failed build
+raises with nvcc's output; nothing falls back to a plain version.
+
+Every kernel is a `Kernel` in `KERNELS`: calling it launches on the
+caller's stream, raises on a non-zero ``cudaGetLastError()`` and adds one
+to its plain-integer ``launches`` count.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "librepro_torch.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
+
+# ctypes argument shorthands: every pointer and the stream are c_void_p
+PTR, INT, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def _build(final: Path) -> None:
+    """Compile every source in parallel, link, and move the result into
+    ``final`` atomically (a concurrent build's result wins)."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix=".tmp-"))
+    try:
+        nvcc = nvcc_path()
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== {src.name} (rc {p.returncode})\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
+                 *(str(tmp / (s.stem + ".o")) for s in _sources())],
+                capture_output=True, text=True)
+            log.append(f"== link (rc {link.returncode})\n"
+                       f"{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        (tmp / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n"
+                               + "\n".join(log))
+        try:
+            os.rename(tmp, final)
+        except OSError:
+            if not (final / LIB_NAME).exists():
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use in this process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            final = build_dir()
+            if not (final / LIB_NAME).exists():
+                _build(final)
+            lib = ctypes.CDLL(str(final / LIB_NAME))
+            lib.repro_cuda_error_string.argtypes = [INT]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and shared-memory use per kernel)."""
+    library()
+    return (build_dir() / "build.log").read_text()
+
+
+class Kernel:
+    """One C entry point of the library plus its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: tuple):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        lib = library()
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = list(self.argtypes)
+        fn.restype = INT
+        err = fn(*args)
+        if err != 0:
+            msg = lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"{msg} (error {err})")
+        self.launches += 1
+
+
+#: every kernel of the package, by name (registered by the ops modules)
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(name: str, symbol: str, argtypes: tuple) -> Kernel:
+    k = KERNELS[name] = Kernel(name, symbol, argtypes)
+    return k
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def int_array(values) -> ctypes.Array:
+    """A host int32 array, passed to a ``c_void_p`` launcher argument."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def check(t, name: str, dtype, shape: tuple | None = None) -> None:
+    """Validate a kernel input: CUDA, dtype, shape and contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,101 @@
+"""Public wrapper of the fused pipeline front end (steps 1-3).
+
+On CUDA tensors `pair_frontend` runs two kernels: `seed_buckets` hashes
+both mates' seeds into (2B, S) bucket ids, and `pair_frontend` gathers
+the padded rows, merges, filters and compacts, so the (B, S, K) location
+tensor and the sorted start lists never reach device memory.  On CPU
+tensors (or with ``backend="torch"``) it runs the plain version in
+`ref.py`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.seeding import seed_offsets_tuple
+from repro_torch.kernels import _cuda
+from repro_torch.kernels._cuda import INT, PTR, U32
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.pair_frontend.ref import (
+    FrontendResult,
+    pair_frontend_ref,
+)
+
+SEED_BUCKETS = _cuda.register(
+    "seed_buckets", "seed_buckets_launch",
+    (PTR, PTR, INT, INT, PTR, INT, INT, U32, U32, PTR, PTR))
+PAIR_FRONTEND = _cuda.register(
+    "pair_frontend", "pair_frontend_launch",
+    (PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR))
+
+MAX_SHARED = 48 * 1024
+
+
+def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
+                 seeds_per_read: int, hash_seed: int,
+                 table_size: int) -> torch.Tensor:
+    """Kernel: (B, R) uint8 mates -> (2B, S) int32 bucket ids (mate-1 rows
+    first)."""
+    B, R = reads1.shape
+    _cuda.check(reads1, "reads1", torch.uint8)
+    _cuda.check(reads2, "reads2", torch.uint8, (B, R))
+    offs = seed_offsets_tuple(R, seed_len, seeds_per_read)
+    if len(offs) > 16 or seed_len > 64:
+        raise ValueError("seed_buckets supports S <= 16 seeds of <= 64 bp")
+    if table_size & (table_size - 1):
+        raise ValueError("table_size must be a power of two")
+    out = torch.empty((2 * B, len(offs)), dtype=torch.int32,
+                      device=reads1.device)
+    SEED_BUCKETS(reads1.data_ptr(), reads2.data_ptr(), B, R,
+                 _cuda.int_array(offs), len(offs), seed_len,
+                 hash_seed & 0xFFFFFFFF, table_size - 1, out.data_ptr(),
+                 _cuda.stream_of(reads1))
+    return out
+
+
+def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
+                          seed_offs: tuple, delta: int,
+                          max_candidates: int) -> FrontendResult:
+    """Kernel: padded rows (T, K) + (2B, S) bucket ids -> FrontendResult."""
+    K = rows.shape[1]
+    n2, S = buckets.shape
+    B = n2 // 2
+    C = max_candidates
+    _cuda.check(rows, "rows", torch.int32)
+    _cuda.check(buckets, "buckets", torch.int32, (2 * B, len(seed_offs)))
+    if (6 * S * K + 3) * 4 > MAX_SHARED:
+        raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
+    dev = rows.device
+    pos1 = torch.empty((B, C), dtype=torch.int32, device=dev)
+    pos2 = torch.empty((B, C), dtype=torch.int32, device=dev)
+    n, nh1, nh2 = (torch.empty((B,), dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,
+                  _cuda.int_array(seed_offs), delta, C, pos1.data_ptr(),
+                  pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
+                  nh2.data_ptr(), _cuda.stream_of(rows))
+    return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
+                          n_hits2=nh2)
+
+
+def pair_frontend(
+    rows: torch.Tensor,      # (T, K) int32 padded location rows
+    reads1: torch.Tensor,    # (B, R) uint8 mate 1, reference orientation
+    reads2: torch.Tensor,    # (B, R) uint8 mate 2, reference orientation
+    seed_len: int,
+    seeds_per_read: int = 3,
+    hash_seed: int = 0,
+    delta: int = 500,
+    max_candidates: int = 8,
+    backend: str = "auto",
+) -> FrontendResult:
+    """Fused front end for a batch of read pairs (steps 1-3)."""
+    backend = resolve_backend(backend, rows.device, family="pair_frontend")
+    if backend == "torch":
+        return pair_frontend_ref(rows, reads1, reads2, seed_len,
+                                 seeds_per_read, hash_seed, delta,
+                                 max_candidates)
+    T = rows.shape[0]
+    buckets = seed_buckets(reads1, reads2, seed_len, seeds_per_read,
+                           hash_seed, T)
+    offs = seed_offsets_tuple(reads1.shape[1], seed_len, seeds_per_read)
+    return frontend_from_buckets(rows, buckets, offs, delta, max_candidates)
