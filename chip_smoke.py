@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Drive repro_torch's paired-end mapping path on one NVIDIA GPU and hold
-each hand-written CUDA kernel against its plain PyTorch version.
+"""Drive repro_torch's paired-end and long-read mapping paths on one
+NVIDIA GPU and hold each hand-written CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: the card's name and power limit, the kernel build;
-  2. main path at chromosome scale: a 2^27-base random reference (about
+  2. pair lane at chromosome scale: a 2^27-base random reference (about
      GRCh38 chr10), a 2^26-bucket SeedMap built on the card, one
      `Mapper.map` of 65,536 pairs (sub_rate 0.01) and a `map_stream` of 4
      batches of 65,536 pairs (the last one ragged), with every kernel's
-     launches counted over exactly this phase;
-  3. each kernel against its plain version at the shapes the main path
-     gives it: the same 65,536-pair batch `map` got, and the 16,384-row
+     launches counted over exactly this lane;
+  2b. long-read lane on the same session: one `Mapper.map_long` of 2,048
+     reads of 10,000 bp (sub_rate 0.01; 65,536 pseudo-pairs) and a
+     `map_long_stream` of 4 such batches (the last one 1,500 reads), the
+     launches counted over exactly this lane;
+  3. each kernel against its plain version at the shapes the main paths
+     give it: the same 65,536-pair batch `map` got, the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
-     size: the unpacked flavor, prescreen_top 4, a band >= W DP); exact
-     equality, timed with CUDA events;
-  4. the same 65,536-pair batch through the kernel Mapper and a
-     plain-backend Mapper on the card: equal MapResults, field by field;
+     size: the unpacked flavor, prescreen_top 4, a band >= W DP), and the
+     long-read batch's diagonal rows and anchor windows (extra checks:
+     synthetic vote rows, bands 16 and >= W); exact equality, timed with
+     CUDA events;
+  4. the same batches through the kernel Mapper and plain-backend
+     Mappers on the card (the long-read one on the CSR index, which takes
+     the staged path): equal results, field by field;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -35,6 +43,9 @@ TABLE_BITS = 26
 BATCH = 65_536
 STREAM_BATCHES = 4
 RAGGED_TAIL = 40_000
+LONG_BATCH = 2_048           # reads of LONG_LEN bp: 65,536 pseudo-pairs
+LONG_LEN = 10_000
+LONG_TAIL = 1_500
 SEED = 0
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
@@ -48,8 +59,14 @@ REPLACES = {
     "pair_frontend": "src/repro/kernels/pair_frontend/kernel.py:298",
     "candidate_align": "src/repro/kernels/candidate_align/kernel.py:310",
     "residual_dp": "src/repro/kernels/residual_dp/kernel.py:171",
+    "location_vote": "src/repro/kernels/location_vote/kernel.py:148",
+    "banded_sw": "src/repro/kernels/banded_sw/kernel.py:224",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
+                "residual_dp")
+LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
+                "banded_sw")
 
 
 def card_line() -> str:
@@ -90,20 +107,14 @@ def max_abs_err(got, want) -> int:
     return worst
 
 
-def profile_step(mapper, sim, record: dict, out_dir: Path) -> None:
-    """Steady-state time of one `map` step on reads already on the card,
+def profile_step(step, n_items: int, unit: str, key: str, tag: str,
+                 record: dict, out_dir: Path) -> None:
+    """Steady-state time of one ``step()`` on reads already on the card,
     and where its device time goes (torch.profiler), after the launch
     counts of the main path were read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    dev = mapper.device
-    r1 = torch.as_tensor(sim.reads1, device=dev)
-    r2 = torch.as_tensor(sim.reads2, device=dev)
-
-    def step():
-        return mapper.map(r1, r2)
 
     step_ms = time_ms(step, 10)
     with profile(activities=[ProfilerActivity.CPU,
@@ -121,18 +132,18 @@ def profile_step(mapper, sim, record: dict, out_dir: Path) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [{"name": e.key[:80], "calls": e.count,
             "device_ms": e.self_device_time_total / 1e3} for e in events[:12]]
-    (out_dir / "profile.txt").write_text(prof.key_averages().table(
+    (out_dir / f"profile_{key}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
-    record["step"] = {"pairs": len(sim.reads1), "step_ms": step_ms,
-                      "pairs_per_s": len(sim.reads1) / step_ms * 1e3,
-                      "profiled_wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms,
-                      "device_idle_share": 1 - busy_ms / wall_ms, "top": top}
-    print(f"[2] steady map step: {len(sim.reads1)} pairs in {step_ms:.3f} ms"
-          f" ({len(sim.reads1) / step_ms * 1e3:.0f} pairs/s); profiled "
+    record[key] = {unit: n_items, "step_ms": step_ms,
+                   f"{unit}_per_s": n_items / step_ms * 1e3,
+                   "profiled_wall_ms": wall_ms,
+                   "device_busy_ms": busy_ms,
+                   "device_idle_share": 1 - busy_ms / wall_ms, "top": top}
+    print(f"{tag} steady {key}: {n_items} {unit} in {step_ms:.3f} ms"
+          f" ({n_items / step_ms * 1e3:.0f} {unit}/s); profiled "
           f"step {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device-busy")
     for t in top:
-        print(f"[2]   {t['device_ms']:9.3f} ms  x{t['calls']:<3d} "
+        print(f"{tag}   {t['device_ms']:9.3f} ms  x{t['calls']:<3d} "
               f"{t['name']}")
 
 
@@ -146,18 +157,22 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.encoding import revcomp
+    from repro_torch.core.long_read import (
+        _anchor_windows, candidate_diagonals, segment_views)
     from repro_torch.core.pipeline import (
         M_LIGHT, PipelineConfig, residual_buffer)
     from repro_torch.core.seeding import seed_offsets_tuple
-    from repro_torch.core.seedmap import INVALID_LOC, SeedMapConfig
+    from repro_torch.core.seedmap import INVALID_LOC, SeedMap, SeedMapConfig
     from repro_torch.core.simulate import (
-        ReadSimConfig, random_reference, simulate_pairs)
+        ReadSimConfig, random_reference, simulate_long_reads, simulate_pairs)
     from repro_torch.engine import ExecutionConfig, Mapper
     from repro_torch.kernels import _cuda
     from repro_torch.kernels._util import kernel_reference
+    from repro_torch.kernels.banded_sw.ops import banded_sw
     from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+    from repro_torch.kernels.location_vote.ops import location_vote
     from repro_torch.kernels.pair_frontend.ops import (
-        frontend_from_buckets, seed_buckets)
+        frontend_from_buckets, seed_buckets, segment_pair_frontend)
     from repro_torch.kernels.pair_frontend.ref import (
         frontend_from_buckets_ref, seed_buckets_ref)
     from repro_torch.kernels.residual_dp.ops import residual_pair_dp
@@ -218,9 +233,9 @@ def main() -> int:
                                                    device=dev))
     launches = _cuda.launch_counts()
     record["launches"] = launches
-    print(f"[2] launches on the main path: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel never launched on the main path: "
+    print(f"[2] launches on the pair lane: {launches}")
+    if not all(launches[k] > 0 for k in PAIR_KERNELS):
+        raise RuntimeError(f"a kernel never launched on the pair lane: "
                            f"{launches}")
 
     pos1 = res.pos1.cpu().numpy()
@@ -250,7 +265,81 @@ def main() -> int:
         raise RuntimeError("stream totals miss pairs or count padding")
     if within.mean() < 0.7 or stream_within < 0.95:
         raise RuntimeError("mapping accuracy below the expected floor")
-    profile_step(mapper, noisy, record, out_dir)
+    r1_dev = torch.as_tensor(noisy.reads1, device=dev)
+    r2_dev = torch.as_tensor(noisy.reads2, device=dev)
+    profile_step(lambda: mapper.map(r1_dev, r2_dev), BATCH, "pairs", "step",
+                 "[2]", record, out_dir)
+
+    # ---- 2b. long-read lane on the same session ----------------------------
+    lr = mapper.lr_cfg
+    long_reads, long_true = simulate_long_reads(ref, LONG_BATCH, LONG_LEN,
+                                                seed=SEED + 10)
+    long_batches = [
+        simulate_long_reads(ref, LONG_TAIL if k == STREAM_BATCHES - 1
+                            else LONG_BATCH, LONG_LEN, seed=SEED + 20 + k)
+        for k in range(STREAM_BATCHES)]
+
+    def count_near(state, res, true):
+        hit = res.mapped & res.n_valid & (
+            (res.position.long() - true.long()).abs() <= lr.vote_bin)
+        return state + hit.sum()
+
+    _cuda.reset_launches()
+    t0 = time.time()
+    lres = mapper.map_long(long_reads)
+    torch.cuda.synchronize()
+    record["map_long_s"] = time.time() - t0
+    lsr = mapper.map_long_stream(
+        long_batches, reduce_fn=count_near,
+        reduce_init=torch.zeros((), dtype=torch.int64, device=dev))
+    long_launches = _cuda.launch_counts()
+    record["long_launches"] = long_launches
+    print(f"[2b] launches on the long-read lane: {long_launches}")
+    if not all(long_launches[k] > 0 for k in LONG_KERNELS):
+        raise RuntimeError(f"a kernel never launched on the long-read lane: "
+                           f"{long_launches}")
+    if long_launches["candidate_align"] or long_launches["residual_dp"]:
+        raise RuntimeError(f"a pair-lane-only kernel launched on the "
+                           f"long-read lane: {long_launches}")
+
+    lpos = lres.position.cpu().numpy().astype(np.int64)
+    lmapped = lres.mapped.cpu().numpy()
+    lnear = lmapped & (np.abs(lpos - long_true) <= lr.vote_bin)
+    n_long = (STREAM_BATCHES - 1) * LONG_BATCH + LONG_TAIL
+    long_stream_near = int(lsr.reduced) / lsr.n_pairs
+    record["map_long"] = {
+        "reads": LONG_BATCH, "read_len": LONG_LEN, "sub_rate": 0.01,
+        "segments": lr.n_segments(LONG_LEN), "band": lr.band(),
+        "mapped": float(lmapped.mean()), "within_vote_bin": float(lnear.mean()),
+        "mean_votes": float(lres.votes.float().mean()),
+        "mean_candidates": float(lres.n_candidates.float().mean())}
+    record["long_stream"] = {
+        "reads": lsr.n_pairs, "batches": lsr.n_batches,
+        "seconds": lsr.seconds, "reads_per_s": lsr.pairs_per_s,
+        "mbp_per_s": lsr.mbp_per_s(LONG_LEN), "totals": lsr.totals,
+        "within_vote_bin": long_stream_near}
+    print(f"[2b] map_long: {LONG_BATCH} reads of {LONG_LEN} bp "
+          f"({lr.n_segments(LONG_LEN)} segments, band {lr.band()}) in "
+          f"{record['map_long_s']:.3f} s, mapped {lmapped.mean():.4f}, "
+          f"within {lr.vote_bin} bp of truth {lnear.mean():.4f}")
+    print(f"[2b] map_long_stream: {lsr.n_pairs} reads in {lsr.n_batches} "
+          f"batches, {lsr.seconds:.3f} s ({lsr.pairs_per_s:.0f} reads/s, "
+          f"{lsr.mbp_per_s(LONG_LEN):.1f} Mbp/s), within {lr.vote_bin} bp "
+          f"{long_stream_near:.4f}")
+    print(f"[2b] stage totals: {lsr.totals}")
+    if lsr.totals["n_reads"] != n_long or lsr.n_pairs != n_long:
+        raise RuntimeError("long-read stream totals miss reads or count "
+                           "padding")
+    if lnear.mean() < 0.99 or long_stream_near < 0.99:
+        raise RuntimeError("long-read accuracy below 0.99 within vote_bin")
+    lr_dev = torch.as_tensor(long_reads, device=dev)
+    profile_step(lambda: mapper.map_long(lr_dev), LONG_BATCH, "reads",
+                 "long_step", "[2b]", record, out_dir)
+    long_step_ms = record["long_step"]["step_ms"]
+    record["long_step"]["mbp_per_s"] = LONG_BATCH * LONG_LEN / long_step_ms \
+        / 1e3
+    print(f"[2b] steady map_long: {record['long_step']['mbp_per_s']:.1f} "
+          f"Mbp/s")
 
     # ---- 3. each kernel against its plain version --------------------------
     # The main path's shapes: the batch `map` got above, and the residual
@@ -276,7 +365,10 @@ def main() -> int:
         err = max_abs_err(got, want)
         entry = kernels.setdefault(name, {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] + long_launches[name],
+            "launches_pairs": launches[name],
+            "launches_long": long_launches[name],
             "max_abs_err": 0, "match": True, "library_ms": None,
             "checks": 0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -384,6 +476,69 @@ def main() -> int:
     record["residual_buffer"] = {"rows": cap, "items": n_items}
     print(f"[3] residual buffer: {cap} rows, {n_items} live items")
 
+    # kernel 5: location vote over the long-read batch's diagonal rows (the
+    # function's own work: a sort of each row, ~2 M log2 M), then
+    # synthetic rows: negative and far-negative diagonals, ties, all
+    # invalid
+    lp = lr.pipe
+    n_pp = lr.n_segments(LONG_LEN) - 1
+    fe_l = segment_pair_frontend(
+        rows, lr_dev, lr.segment_len, lr.segment_stride, lp.seed_len,
+        lp.seeds_per_read, sm_cfg.hash_seed, lr.pair_delta(),
+        lp.max_candidates)
+    diag = candidate_diagonals(fe_l.pos1, n_pp, lr.segment_stride)
+    Bl, Ml = diag.shape
+    compare("location_vote",
+            lambda: location_vote(diag, lr.vote_bin, backend="cuda"),
+            lambda: location_vote(diag, lr.vote_bin, backend="torch"),
+            n_bytes=4 * Bl * Ml + 8 * Bl,
+            n_ops=Bl * 2 * Ml * float(np.log2(Ml)))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    synth = torch.randint(-400, 4000, (4096, Ml), generator=g, device=dev,
+                          dtype=torch.int32)
+    synth[torch.rand(synth.shape, generator=g, device=dev) < 0.4] = \
+        INVALID_LOC
+    synth[0] = INVALID_LOC
+    synth[1, 4:] = INVALID_LOC
+    synth[1, :4] = torch.tensor([300, 300, 100, 100], device=dev)
+    synth[2, 4:] = INVALID_LOC
+    synth[2, :4] = torch.tensor([-1, -1, -1, 50], device=dev)
+    synth[3] = torch.randint(-(2**31), -(2**31) + 4096, (Ml,), generator=g,
+                             device=dev, dtype=torch.int32)
+    compare("location_vote",
+            lambda: location_vote(synth, lr.vote_bin, backend="cuda"),
+            lambda: location_vote(synth, lr.vote_bin, backend="torch"),
+            0, 0, timed=False)
+    vote = location_vote(diag, lr.vote_bin, backend="cuda")
+    syn = location_vote(synth, lr.vote_bin, backend="cuda")
+    if syn.win_bin[1:3].tolist() != [1, -1] or int(syn.votes[0]) != 0:
+        raise RuntimeError(f"location_vote edge rows: {syn.win_bin[:4]}, "
+                           f"{syn.votes[:4]}")
+
+    # kernel 6: banded anchor DP over the same batch's anchor windows, at
+    # the lane's band, band 16 and band >= W
+    lmapped_t = vote.votes > 0
+    win = _anchor_windows(mapper.ref, vote.win_bin * lr.vote_bin, lmapped_t,
+                          lr)
+    anchor = segment_views(lr_dev, lr.segment_len,
+                           lr.segment_stride)[:, 0].contiguous()
+    Ra, Wa = anchor.shape[1], win.shape[1]
+    for band in (lr.band(), 16, Wa):
+        cols = 2 * band + 1 if band < Wa else Wa + 1
+        compare(
+            "banded_sw",
+            lambda bd=band: banded_sw(anchor, win, lp.scoring, bd,
+                                      backend="cuda"),
+            lambda bd=band: banded_sw(anchor, win, lp.scoring, bd,
+                                      backend="torch"),
+            n_bytes=Bl * (Ra + Wa) + 8 * Bl,
+            n_ops=Bl * Ra * cols * 14,
+            timed=band == lr.band(), iters=10)
+    record["long_kernel_shapes"] = {"reads": Bl, "diag_slots": Ml,
+                                    "anchor_len": Ra, "window": Wa}
+    print(f"[3] long-read batch: {Bl} diagonal rows of {Ml} slots, "
+          f"{Ra}-base anchors against {Wa}-base windows")
+
     # ---- 4. whole step against the plain-backend Mapper --------------------
     plain = Mapper.from_index(mapper.index, mapper.ref, pipe,
                               ExecutionConfig(device="cuda", backend="torch"))
@@ -396,6 +551,20 @@ def main() -> int:
     share = float((got.method == M_LIGHT).float().mean())
     print(f"[4] {B}-pair batch: kernel and plain Mappers agree on all "
           f"{len(got._fields)} MapResult fields (light-mapped {share:.4f})")
+    del plain
+    plain_long = Mapper.build(ref, sm_cfg, pipe, ExecutionConfig(
+        device="cuda", backend="torch"))
+    if not isinstance(plain_long.index, SeedMap):
+        raise RuntimeError("the plain long-read Mapper is not on the CSR map")
+    got = mapper.map_long(long_reads)
+    want = plain_long.map_long(long_reads)
+    torch.cuda.synchronize()
+    for f in got._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise RuntimeError(f"kernel and plain long-read Mappers differ "
+                               f"in {f}")
+    print(f"[4] {LONG_BATCH}-read long batch: kernel and plain (staged CSR) "
+          f"Mappers agree on all {len(got._fields)} LongReadResult fields")
 
     # ---- 5. results -----------------------------------------------------
     bad = [k["name"] for k in kernels.values() if not k["match"]]

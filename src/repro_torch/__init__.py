@@ -8,9 +8,21 @@ hold this one against.  Entry point::
 
     from repro_torch.engine import ExecutionConfig, Mapper
     mapper = Mapper.build(ref, seedmap_cfg, pipe_cfg, ExecutionConfig())
-    res = mapper.map(reads1, reads2)
+    res = mapper.map(reads1, reads2)          # read pairs
+    long_res = mapper.map_long(long_reads)    # long reads (§4.7)
 
 Sessions run on the GPU (``ExecutionConfig.device="cuda"``) unless the
 caller asks for the CPU, where every kernel is replaced by its plain
 PyTorch version.
 """
+
+from repro_torch.engine import (  # noqa: E402
+    ExecutionConfig,
+    LongReadConfig,
+    LongReadResult,
+    Mapper,
+    StreamResult,
+)
+
+__all__ = ["ExecutionConfig", "LongReadConfig", "LongReadResult", "Mapper",
+           "StreamResult"]

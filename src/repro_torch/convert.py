@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.long_read import LongReadConfig
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig
@@ -22,18 +23,27 @@ from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig
 #: `ExecutionConfig.backend`)
 _DROPPED = {"frontend_block", "light_block", "residual_block",
             "frontend_backend", "light_backend", "residual_backend"}
+#: JAX LongReadConfig fields with no counterpart here, for the same reasons
+_LR_DROPPED = {"vote_backend", "vote_block"}
 
 
 def config_from_fields(cls, fields: dict):
-    """One of `SeedMapConfig`, `PipelineConfig`, `Scoring` from the JAX
-    config's ``dataclasses.asdict``.
+    """One of `SeedMapConfig`, `PipelineConfig`, `LongReadConfig`,
+    `Scoring` from the JAX config's ``dataclasses.asdict``.
 
-    A nested scoring dict becomes a `Scoring`; TPU launch-block sizes and
-    per-family kernel backends are dropped (every backend gives the same
-    results; a session here picks one with `ExecutionConfig.backend`);
-    any other unknown field raises.
+    A nested scoring dict becomes a `Scoring` and a nested pipe dict a
+    `PipelineConfig`; TPU launch-block sizes and per-family kernel
+    backends are dropped (every backend gives the same results; a session
+    here picks one with `ExecutionConfig.backend`); any other unknown
+    field raises.
     """
     fields = dict(fields)
+    if cls is LongReadConfig:
+        for k in _LR_DROPPED:
+            fields.pop(k, None)
+        if isinstance(fields.get("pipe"), dict):
+            fields["pipe"] = config_from_fields(PipelineConfig,
+                                                fields["pipe"])
     if cls is PipelineConfig:
         for k in _DROPPED:
             fields.pop(k, None)

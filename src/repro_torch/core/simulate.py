@@ -69,6 +69,29 @@ def repetitive_reference(
     return out
 
 
+def simulate_long_reads(
+    ref: np.ndarray,
+    n: int,
+    length: int,
+    sub_rate: float = 0.01,
+    rng: np.random.Generator | None = None,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Substitution-only long reads in reference orientation.
+
+    Returns ``(reads, true_starts)``: (n, length) uint8 reads and their
+    (n,) int32 reference starts.  Substitutions at a PacBio-HiFi-like
+    rate are enough for the long-read lane, whose vote and anchor DP need
+    per-segment seed survival only.
+    """
+    rng = rng or np.random.default_rng(seed)
+    starts = rng.integers(64, len(ref) - length - 64, size=n)
+    reads = ref[starts[:, None] + np.arange(length)]
+    errs = rng.random(reads.shape) < sub_rate
+    reads[errs] = (reads[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+    return reads.astype(np.uint8), starts.astype(np.int32)
+
+
 def _inject_errors(ref, start, read_len, cfg: ReadSimConfig, rng):
     """Sequence `read_len` bases starting at `start` with errors.
 

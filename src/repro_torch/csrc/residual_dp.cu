@@ -15,17 +15,25 @@
 //
 // Bound on the H100: ~R*(2*band+1)*14 integer ops per item against a
 // ~200-byte window, so integer operations bound it.  Design: one thread
-// per item, the H and E rows of its frame in shared memory laid out
-// column-major ([slot][thread], conflict-free).  The horizontal gap is the
-// reference's running max of h_tmp + ext*k taken sequentially along the
-// row (the TPU kernel's Hillis-Steele prefix max computes the same
-// maximum), so every cell equals the reference's, dead cells included.
-#include "common.cuh"
+// per item runs the shared recurrence of gotoh.cuh, reading window bases
+// straight from the padded reference.
+#include "gotoh.cuh"
 
 namespace {
 
 using repro::NEG;
 using repro::Scoring;
+
+// Base j of an item's window in the padded reference (raw or packed).
+template <bool PACKED>
+struct RefWindow {
+  const void* ref;
+  long long start;
+  int off;
+  __device__ int operator()(int j) const {
+    return repro::window_base<PACKED>(ref, start, off, j);
+  }
+};
 
 template <bool PACKED>
 __global__ void residual_dp_kernel(
@@ -44,80 +52,11 @@ __global__ void residual_dp_kernel(
     did[t] = 0;
     return;
   }
-  const bool full = band < 0;
-  const int cols = full ? W + 1 : 2 * band + 1;
-  const int stride = blockDim.x;
-  int* H = sh + threadIdx.x;                    // H[k * stride]
-  int* E = sh + cols * stride + threadIdx.x;    // E[k * stride]
-  const uint8_t* read = reads + t * R;
-  const long long start = sdma[t];
-  const int o = off[t];
-  const int op = sc.gap_open, ext = sc.gap_extend, first = op + ext;
-  const int c = (W - R) / 2;                    // band centre diagonal
-
-  if (full) {
-    for (int j = 0; j <= W; ++j) {
-      H[j * stride] = 0;
-      E[j * stride] = NEG;
-    }
-    for (int i = 1; i <= R; ++i) {
-      const int rb = read[i - 1];
-      int diag = H[0];                           // h_prev[j-1]
-      E[0] = max(H[0] - first, E[0] - ext);
-      const int h0 = -(op + ext * i);
-      H[0] = max(h0, NEG - op);
-      int gmax = h0;                             // running max of g[0..j-1]
-      for (int j = 1; j <= W; ++j) {
-        const int hp = H[j * stride];
-        const int e = max(hp - first, E[j * stride] - ext);
-        E[j * stride] = e;
-        const int wb = repro::window_base<PACKED>(ref, start, o, j - 1);
-        const int ht = max(diag + (rb == wb ? sc.match : -sc.mismatch), e);
-        diag = hp;
-        const int f = gmax - op - ext * j;
-        gmax = max(gmax, ht + ext * j);
-        H[j * stride] = max(ht, f);
-      }
-    }
-  } else {
-    for (int k = 0; k < cols; ++k) {
-      const int j0 = c - band + k;
-      H[k * stride] = (j0 >= 0 && j0 <= W) ? 0 : NEG;
-      E[k * stride] = NEG;
-    }
-    for (int i = 0; i < R; ++i) {
-      const int rb = read[i];
-      int gmax = 0;
-      for (int k = 0; k < cols; ++k) {
-        const int jcol = i + 1 + c - band + k;
-        const int h_up = k + 1 < cols ? H[(k + 1) * stride] : NEG;
-        const int e_up = k + 1 < cols ? E[(k + 1) * stride] : NEG;
-        const int e = max(h_up - first, e_up - ext);
-        const int wb = (jcol >= 1 && jcol <= W)
-                           ? repro::window_base<PACKED>(ref, start, o, jcol - 1)
-                           : -1;
-        int ht = max(H[k * stride] + (rb == wb ? sc.match : -sc.mismatch), e);
-        if (jcol == 0) ht = -(op + ext * (i + 1));
-        const bool valid = jcol >= 0 && jcol <= W;
-        if (!valid) ht = NEG;
-        const int f = (k == 0 ? NEG : gmax) - op - ext * k;
-        const int g = ht + ext * k;
-        gmax = k == 0 ? g : max(gmax, g);
-        H[k * stride] = valid ? max(ht, f) : NEG;
-        E[k * stride] = e;
-      }
-    }
-  }
-  int best = H[0], arg = 0;
-  for (int k = 1; k < cols; ++k) {
-    const int h = H[k * stride];
-    if (h > best) {
-      best = h;
-      arg = k;
-    }
-  }
-  score[t] = best;
-  end[t] = full ? arg : R + c - band + arg;
+  const RefWindow<PACKED> win{ref, sdma[t], off[t]};
+  const repro::DPOut r = repro::gotoh_dp(reads + t * R, R, W, band, sc, win,
+                                         sh + threadIdx.x, blockDim.x);
+  score[t] = r.score;
+  end[t] = r.end;
   did[t] = 1;
 }
 
@@ -134,8 +73,7 @@ extern "C" int residual_dp_launch(const void* ref, int packed,
                                   int gap_extend, void* score, void* end,
                                   void* did, void* stream) {
   if (n == 0) return 0;
-  const int cols = band < 0 ? W + 1 : 2 * band + 1;
-  const size_t smem = 2 * static_cast<size_t>(cols) * threads * sizeof(int);
+  const size_t smem = repro::gotoh_smem(W, band, threads);
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   const Scoring sc{match, mismatch, gap_open, gap_extend};
   auto s = static_cast<cudaStream_t>(stream);

@@ -7,9 +7,11 @@ reference padded for the window kernels and the SeedMap layout the step
 consumes: the CSR map on the staged plain path, the bucket-major
 `PaddedSeedMap` for the CUDA front end.
 
-``mapper.map`` maps one batch; ``mapper.map_stream`` streams batches with
-device-side stage totals and one host sync at the end.  Both are eager
-launches on PyTorch's current stream.
+``mapper.map`` maps one batch of read pairs and ``mapper.map_long`` one
+batch of long reads (the lane config is resolved at build, too);
+``map_stream`` / ``map_long_stream`` stream batches with device-side stage
+totals and one host sync at the end.  All are eager launches on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
@@ -19,6 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.encoding import pack_2bit
+from repro_torch.core.long_read import (
+    LongReadResult,
+    long_stage_stat_counts,
+    map_long_impl,
+)
 from repro_torch.core.pipeline import (
     MapResult,
     PipelineConfig,
@@ -32,8 +39,14 @@ from repro_torch.core.seedmap import (
     build_seedmap,
     to_padded,
 )
-from repro_torch.engine.config import ExecutionConfig, resolved_pipeline
+from repro_torch.engine.config import (
+    ExecutionConfig,
+    resolved_long_read,
+    resolved_pipeline,
+)
 from repro_torch.engine.stats import (
+    LONG_STAT_KEYS,
+    STAT_KEYS,
     add_stage_counts,
     fetch_stage_totals,
     init_stage_totals,
@@ -55,8 +68,16 @@ def _as_device(x, device: torch.device, dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def _mask_tail(res, n):
+    """Set a step result's ``n_valid``: its first ``n`` rows are real."""
+    valid = res.n_valid
+    return res._replace(
+        n_valid=torch.arange(valid.shape[0], device=valid.device) < n)
+
+
 class Mapper:
-    """A reusable paired-end mapping session (index + resolved config).
+    """A reusable mapping session for read pairs and long reads (index +
+    resolved configs).
 
     Use :meth:`build` / :meth:`from_index`.
     """
@@ -70,6 +91,7 @@ class Mapper:
         self.exec_cfg = exec_cfg
         self.device = device
         self.backend = backend       # "cuda" or "torch"
+        self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg)
         # the reference padded once for both window kernels (CUDA only)
         width = pipe_cfg.read_len + 2 * max(pipe_cfg.max_gap, pipe_cfg.dp_pad)
         self.kref = (kernel_reference(ref, width, pipe_cfg.packed_ref)
@@ -129,17 +151,74 @@ class Mapper:
     # ------------------------------------------------------------- run ---
     def _step(self, reads1: torch.Tensor, reads2: torch.Tensor,
               n) -> MapResult:
-        res = map_pairs_impl(self.index, self.ref, reads1, reads2,
-                             self.pipe_cfg, self.backend, self.kref)
-        B = reads1.shape[0]
-        return res._replace(
-            n_valid=torch.arange(B, device=self.device) < n)
+        return _mask_tail(map_pairs_impl(self.index, self.ref, reads1,
+                                         reads2, self.pipe_cfg, self.backend,
+                                         self.kref), n)
+
+    def _long_step(self, reads: torch.Tensor, n) -> LongReadResult:
+        return _mask_tail(map_long_impl(self.index, self.ref, reads,
+                                        self.lr_cfg, self.backend), n)
 
     def map(self, reads1, reads2) -> MapResult:
         """Map one batch of FR read pairs (``reads2`` as sequenced)."""
         reads1 = _as_device(reads1, self.device, torch.uint8)
         reads2 = _as_device(reads2, self.device, torch.uint8)
         return self._step(reads1, reads2, reads1.shape[0])
+
+    def map_long(self, reads) -> LongReadResult:
+        """Map one batch of (B, L) uint8 long reads in reference
+        orientation, under the session's lane config (``self.lr_cfg``)."""
+        reads = _as_device(reads, self.device, torch.uint8)
+        return self._long_step(reads, reads.shape[0])
+
+    # ---------------------------------------------------------- stream ---
+    #: per lane: (step method, stage counts, stat keys, read arrays per
+    #: batch item)
+    _LANES = {
+        "pairs": ("_step", stage_stat_counts, STAT_KEYS, 2),
+        "long": ("_long_step", long_stage_stat_counts, LONG_STAT_KEYS, 1),
+    }
+
+    def _stream(self, lane, batches, on_result, reduce_fn, reduce_init,
+                warmup_batch) -> StreamResult:
+        """The lane-generic stream body behind `map_stream` and
+        `map_long_stream`: warmup, tail padding, per-batch stage totals on
+        the device and the one fetch at the end."""
+        step_name, counts_fn, keys, n_arrays = self._LANES[lane]
+        step = getattr(self, step_name)
+        stream_batch = self.exec_cfg.stream_batch
+        dev = self.device
+        totals = init_stage_totals(dev, keys)
+        reduced = reduce_init
+        if warmup_batch is not None:
+            reads, _ = split_batch(warmup_batch, n_arrays)
+            if stream_batch is None:
+                stream_batch = int(np.shape(reads[0])[0])
+            step(*(to_device(pad_tail(r, stream_batch), dev) for r in reads),
+                 stream_batch)
+
+        def dispatch(*args):
+            nonlocal reduced
+            *reads, n, aux = args
+            res = step(*(to_device(r, dev) for r in reads), n)
+            add_stage_counts(totals, counts_fn(res), keys)
+            if reduce_fn is not None:
+                reduced = reduce_fn(reduced, res,
+                                    tree_map(lambda a: to_device(a, dev),
+                                             aux))
+            return res
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        n_items, n_batches, seconds, _ = run_stream(
+            dispatch, batches, stream_batch=stream_batch,
+            on_result=on_result, sync=sync, n_arrays=n_arrays)
+        return StreamResult(n_pairs=n_items, n_batches=n_batches,
+                            seconds=seconds,
+                            totals=fetch_stage_totals(totals, keys),
+                            reduced=reduced, reads_per_item=n_arrays)
 
     def map_stream(self, batches, on_result=None, reduce_fn=None,
                    reduce_init=None, warmup_batch=None) -> StreamResult:
@@ -154,35 +233,14 @@ class Mapper:
         stream shape when ``stream_batch`` is unset).  ``on_result(idx,
         res, n_valid)`` sees each result one batch late.
         """
-        stream_batch = self.exec_cfg.stream_batch
-        dev = self.device
-        totals = init_stage_totals(dev)
-        reduced = reduce_init
-        if warmup_batch is not None:
-            reads, _ = split_batch(warmup_batch)
-            if stream_batch is None:
-                stream_batch = int(np.shape(reads[0])[0])
-            self._step(*(to_device(pad_tail(r, stream_batch), dev)
-                         for r in reads), stream_batch)
+        return self._stream("pairs", batches, on_result, reduce_fn,
+                            reduce_init, warmup_batch)
 
-        def dispatch(r1, r2, n, aux):
-            nonlocal reduced
-            res = self._step(to_device(r1, dev), to_device(r2, dev), n)
-            add_stage_counts(totals, stage_stat_counts(res))
-            if reduce_fn is not None:
-                reduced = reduce_fn(reduced, res,
-                                    tree_map(lambda a: to_device(a, dev),
-                                             aux))
-            return res
-
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-        n_items, n_batches, seconds, _ = run_stream(
-            dispatch, batches, stream_batch=stream_batch,
-            on_result=on_result, sync=sync)
-        return StreamResult(n_pairs=n_items, n_batches=n_batches,
-                            seconds=seconds,
-                            totals=fetch_stage_totals(totals),
-                            reduced=reduced)
+    def map_long_stream(self, batches, on_result=None, reduce_fn=None,
+                        reduce_init=None, warmup_batch=None) -> StreamResult:
+        """Stream ``(reads[, aux])`` long-read host batches through the
+        session: `map_stream`'s contract with one read array per item,
+        `LongReadResult` batches (tail rows masked through ``n_valid``)
+        and the lane's LONG_STAT_KEYS totals."""
+        return self._stream("long", batches, on_result, reduce_fn,
+                            reduce_init, warmup_batch)

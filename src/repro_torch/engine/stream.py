@@ -25,7 +25,10 @@ class StreamResult:
     ``totals`` are the device-accumulated stage counts (python ints,
     fetched once); ``reduced`` the final state of the caller's
     ``reduce_fn``, or None.  ``seconds`` covers the first dispatch through
-    the drain of the last batch.
+    the drain of the last batch.  ``n_pairs`` counts the stream's valid
+    items (read pairs on `map_stream`, long reads on `map_long_stream`)
+    and ``reads_per_item`` the reads each item carries (2 mates, 1 long
+    read), the bases-per-item factor of :meth:`mbp_per_s`.
     """
 
     n_pairs: int
@@ -33,13 +36,14 @@ class StreamResult:
     seconds: float
     totals: dict
     reduced: object = None
+    reads_per_item: int = 2
 
     @property
     def pairs_per_s(self) -> float:
         return self.n_pairs / max(self.seconds, 1e-9)
 
     def mbp_per_s(self, read_len: int) -> float:
-        bases = self.n_pairs * 2 * read_len   # two mates per pair
+        bases = self.n_pairs * self.reads_per_item * read_len
         return bases / max(self.seconds, 1e-9) / 1e6
 
     @property
@@ -61,15 +65,19 @@ def pad_tail(arr, batch: int):
     return np.concatenate([arr, pad], axis=0)
 
 
-def split_batch(item):
-    """(reads1, reads2[, aux]) -> ((reads1, reads2), aux)."""
-    if len(item) == 2:
+def split_batch(item, n_arrays: int = 2):
+    """(arr_0, ..., arr_{n-1}[, aux]) -> ((arr_0, ...), aux).
+
+    ``n_arrays`` is the lane's read arrays per item: 2 mates on
+    `map_stream`, 1 read batch on `map_long_stream`.
+    """
+    if len(item) == n_arrays:
         return tuple(item), ()
-    if len(item) != 3:
+    if len(item) != n_arrays + 1:
         raise ValueError(
-            "stream batch items must be (reads1, reads2) or (reads1, "
-            f"reads2, aux); got a length-{len(item)} tuple")
-    return tuple(item[:2]), item[2]
+            f"stream batch items must have {n_arrays} read arrays plus an "
+            f"optional aux tree; got a length-{len(item)} tuple")
+    return tuple(item[:n_arrays]), item[n_arrays]
 
 
 def tree_map(fn, tree):
@@ -91,9 +99,9 @@ def to_device(arr, device: torch.device) -> torch.Tensor:
 
 
 def run_stream(dispatch, batches, *, stream_batch=None, on_result=None,
-               sync=None):
-    """Drive ``dispatch(reads1, reads2, n, aux) -> result`` over host
-    batches.
+               sync=None, n_arrays: int = 2):
+    """Drive ``dispatch(*reads, n, aux) -> result`` over host batches of
+    ``n_arrays`` read arrays each.
 
     The first batch fixes the stream shape unless ``stream_batch`` pins
     it.  ``sync()`` waits for the device once, after the last dispatch.
@@ -103,7 +111,7 @@ def run_stream(dispatch, batches, *, stream_batch=None, on_result=None,
     prev = res = None
     t0 = None
     for idx, item in enumerate(batches):
-        reads, aux = split_batch(item)
+        reads, aux = split_batch(item, n_arrays)
         n = int(np.shape(reads[0])[0])
         if stream_batch is None:
             stream_batch = n

@@ -1,0 +1,47 @@
+"""Public wrapper of the banded Gotoh DP (the long-read anchor DP).
+
+On CUDA tensors `banded_sw` launches the `banded_sw` kernel, which runs
+the recurrence `residual_dp` runs (csrc/gotoh.cuh) on gathered windows;
+on CPU tensors (or with ``backend="torch"``) it runs the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.dp_fallback import DPResult
+from repro_torch.core.scoring import Scoring
+from repro_torch.kernels import _cuda
+from repro_torch.kernels._cuda import INT, PTR
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.banded_sw.ref import gotoh_banded_ref
+from repro_torch.kernels.residual_dp.ops import dp_threads
+
+BANDED_SW = _cuda.register(
+    "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 9 + (PTR,) * 3)
+
+
+def banded_sw(read: torch.Tensor, win: torch.Tensor,
+              scoring: Scoring = Scoring(), band: int | None = None,
+              backend: str = "auto") -> DPResult:
+    """Batched semiglobal Gotoh of (B, R) uint8 reads against (B, W) uint8
+    windows.  ``band`` restricts the DP to cells within ``band`` of the
+    window's centre diagonal (`core.dp_fallback.band_center`); ``None``
+    or ``band >= W`` is the exact full DP."""
+    backend = resolve_backend(backend, read.device, family="banded_sw")
+    if backend == "torch":
+        return gotoh_banded_ref(read, win, band, scoring)
+    B, R = read.shape
+    W = win.shape[1]
+    _cuda.check(read, "read", torch.uint8)
+    _cuda.check(win, "win", torch.uint8, (B, W))
+    if band is not None and band < 0:
+        raise ValueError(f"band must be >= 0 or None, got {band}")
+    full = band is None or band >= W
+    cols = W + 1 if full else 2 * band + 1
+    score, end = (torch.empty(B, dtype=torch.int32, device=read.device)
+                  for _ in range(2))
+    BANDED_SW(read.data_ptr(), win.data_ptr(), B, R, W, -1 if full else band,
+              dp_threads(cols), scoring.match, scoring.mismatch,
+              scoring.gap_open, scoring.gap_extend, score.data_ptr(),
+              end.data_ptr(), _cuda.stream_of(read))
+    return DPResult(score=score, ref_end=end)

@@ -99,3 +99,35 @@ def pair_frontend(
                            hash_seed, T)
     offs = seed_offsets_tuple(reads1.shape[1], seed_len, seeds_per_read)
     return frontend_from_buckets(rows, buckets, offs, delta, max_candidates)
+
+
+def segment_pair_frontend(
+    rows: torch.Tensor,      # (T, K) int32 padded location rows
+    reads: torch.Tensor,     # (B, L) uint8 long reads, reference orientation
+    segment_len: int,
+    segment_stride: int,
+    seed_len: int,
+    seeds_per_read: int = 3,
+    hash_seed: int = 0,
+    delta: int = 500,
+    max_candidates: int = 8,
+    backend: str = "auto",
+) -> FrontendResult:
+    """Long-read pseudo-pair front end (§4.7).
+
+    Each read is cut into ``segment_len``-wide segments every
+    ``segment_stride`` bases; segments ``[:, :-1]`` and ``[:, 1:]`` become
+    the mates of ``S - 1`` pseudo-pairs per read, made contiguous as
+    ``(B * (S-1), segment_len)`` and routed through `pair_frontend`
+    unchanged.  Mate 2 is not reverse-complemented: both segments already
+    sit in reference orientation.
+    """
+    # call-time import: core.long_read imports this module
+    from repro_torch.core.long_read import segment_views
+
+    segs = segment_views(reads, segment_len, segment_stride)
+    B, S, R = segs.shape
+    r1 = segs[:, :-1].reshape(B * (S - 1), R).contiguous()
+    r2 = segs[:, 1:].reshape(B * (S - 1), R).contiguous()
+    return pair_frontend(rows, r1, r2, seed_len, seeds_per_read, hash_seed,
+                         delta, max_candidates, backend=backend)

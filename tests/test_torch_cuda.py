@@ -11,15 +11,19 @@ import torch
 
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.pipeline import PipelineConfig
+from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import INVALID_LOC, SeedMapConfig
 from repro_torch.core.simulate import (
     ReadSimConfig,
     random_reference,
+    simulate_long_reads,
     simulate_pairs,
 )
 from repro_torch.engine import ExecutionConfig, Mapper
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.banded_sw.ops import banded_sw
 from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+from repro_torch.kernels.location_vote.ops import location_vote
 from repro_torch.kernels.pair_frontend.ops import (
     frontend_from_buckets,
     seed_buckets,
@@ -181,6 +185,88 @@ def test_mapper_kernels_match_plain_mapper(dev, packed):
     _cuda.reset_launches()
     got = kern.map(sim.reads1, sim.reads2)
     torch.cuda.synchronize()
-    assert all(v == 1 for v in _cuda.launch_counts().values())
+    assert _cuda.launch_counts() == {**dict.fromkeys(PAIR_KERNELS, 1),
+                                     **dict.fromkeys(LONG_ONLY, 0)}
     want = plain.map(sim.reads1, sim.reads2)
     _same(got, want, f"packed={packed}")
+
+
+PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
+                "residual_dp")
+LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
+                "banded_sw")
+LONG_ONLY = ("location_vote", "banded_sw")
+
+
+@pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (256, 64),
+                                        (256, 1), (1000, 32)])
+def test_location_vote_matches_plain(dev, M, vote_bin):
+    rng = np.random.default_rng(M + vote_bin)
+    diag = rng.integers(-400, 4000, (50, M)).astype(np.int32)
+    diag[rng.random((50, M)) < 0.4] = INVALID_LOC
+    diag[0] = INVALID_LOC                                  # all invalid
+    diag[1] = INVALID_LOC
+    diag[1, :4] = [300, 300, 100, 100]                     # tie
+    diag[2] = INVALID_LOC
+    diag[2, :4] = [-1, -1, -1, 50]                         # floored bin -1
+    diag[3] = rng.integers(-(2**31), -(2**31) + 4096, M)   # far negative
+    d = torch.as_tensor(diag, device=dev)
+    got = location_vote(d, vote_bin, backend="cuda")
+    want = location_vote(d, vote_bin, backend="torch")
+    _same(got, want, f"M={M} bin={vote_bin}")
+    assert got.votes[0].item() == 0 and got.win_bin[0].item() == 0
+    if vote_bin == 64:
+        assert got.win_bin[1].item() == 1 and got.votes[1].item() == 2
+        assert got.win_bin[2].item() == -1 and got.votes[2].item() == 3
+
+
+def test_location_vote_rejects_rows_past_shared_memory(dev):
+    d = torch.zeros((2, 12_289), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        location_vote(d, 64, backend="cuda")
+
+
+@pytest.mark.parametrize("band", [0, 16, 40, 278, None])
+def test_banded_sw_matches_plain(dev, band):
+    rng = np.random.default_rng(band or 5)
+    B, R, W = 70, 150, 278
+    win = rng.integers(0, 4, (B, W), np.uint8)
+    read = rng.integers(0, 4, (B, R), np.uint8)
+    for i in range(1, B, 2):                       # copies at many offsets
+        s = int(rng.integers(0, W - R + 1))
+        read[i] = win[i, s:s + R]
+        read[i, 60:62] = (read[i, 60:62] + 1) % 4
+    read[3, :70] = win[3, 60:130]                  # a 3-base deletion
+    read[3, 70:] = win[3, 133:213]
+    t = (lambda x: torch.as_tensor(x, device=dev))
+    for sc in (Scoring(), Scoring(match=2, mismatch=3, gap_open=4,
+                                  gap_extend=1)):
+        got = banded_sw(t(read), t(win), sc, band, backend="cuda")
+        want = banded_sw(t(read), t(win), sc, band, backend="torch")
+        _same(got, want, f"band={band} {sc}")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_map_long_kernels_match_plain_mapper(dev, packed):
+    rng = np.random.default_rng(3)
+    ref = random_reference(200_000, rng)
+    reads, starts = simulate_long_reads(ref, 40, 3000, seed=6)
+    reads[0] = ref[:3000]                                   # at the origin
+    reads[1, 40:] = ref[:2960]                              # 40 bases early
+    reads[2] = rng.integers(0, 4, 3000)                     # no vote
+    cfg = PipelineConfig(packed_ref=packed)
+    sm_cfg = SeedMapConfig(table_bits=18)
+    kern = Mapper.build(ref, sm_cfg, cfg, ExecutionConfig(device="cuda"))
+    plain = Mapper.build(ref, sm_cfg, cfg,
+                         ExecutionConfig(device="cuda", backend="torch"))
+    _cuda.reset_launches()
+    got = kern.map_long(reads)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts() == {
+        **dict.fromkeys(PAIR_KERNELS, 0), **dict.fromkeys(LONG_KERNELS, 1)}
+    want = plain.map_long(reads)                            # staged, CSR
+    _same(got, want, f"packed={packed}")
+    pos = got.position.cpu().numpy().astype(np.int64)
+    assert got.mapped[3:].all() and not got.mapped[2]
+    assert (np.abs(pos[3:] - starts[3:]) <= kern.lr_cfg.vote_bin).all()
+    assert pos[1] == -64
