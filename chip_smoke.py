@@ -16,13 +16,22 @@ Phases (any failure exits non-zero; nothing is caught):
      reads of 10,000 bp (sub_rate 0.01; 65,536 pseudo-pairs) and a
      `map_long_stream` of 4 such batches (the last one 1,500 reads), the
      launches counted over exactly this lane;
+  2c. the mesh plans on one card: a one-rank NCCL process group (a file
+     store in the output directory) and a (1, 1) ("data", "model") mesh; a
+     `shard_index=True` session built on the same reference (bucket-sharded
+     CSR map, packed reference) maps phase 2's batch and stream, and so
+     does a replicated-index data-parallel mesh session, each equal to
+     phase 2's results field by field and in its stage totals, with the
+     launches counted per plan; one steady sharded step is timed and
+     profiled (the NCCL collectives' device time included);
   3. each kernel against its plain version at the shapes the main paths
      give it: the same 65,536-pair batch `map` got, the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
-     size: the unpacked flavor, prescreen_top 4, a band >= W DP), and the
+     size: the unpacked flavor, prescreen_top 4, a band >= W DP), the
      long-read batch's diagonal rows and anchor windows (extra checks:
-     synthetic vote rows, bands 16 and >= W); exact equality, timed with
-     CUDA events;
+     synthetic vote rows, bands 16 and >= W) and the sharded plan's
+     gathered (B, S, K) locations of the pair batch (extra check: 4,096
+     synthetic rows); exact equality, timed with CUDA events;
   4. the same batches through the kernel Mapper and plain-backend
      Mappers on the card (the long-read one on the CSR index, which takes
      the staged path): equal results, field by field;
@@ -33,9 +42,11 @@ Exits 1 without a result when no CUDA device is available.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 REF_LEN = 1 << 27            # ~GRCh38 chr10 (133.8 Mbp)
@@ -61,12 +72,15 @@ REPLACES = {
     "residual_dp": "src/repro/kernels/residual_dp/kernel.py:171",
     "location_vote": "src/repro/kernels/location_vote/kernel.py:148",
     "banded_sw": "src/repro/kernels/banded_sw/kernel.py:224",
+    "merge_filter": "src/repro/kernels/pair_frontend/kernel.py:341",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
                 "residual_dp")
 LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
                 "banded_sw")
+SHARDED_KERNELS = ("seed_buckets", "merge_filter", "candidate_align",
+                   "residual_dp")
 
 
 def card_line() -> str:
@@ -130,6 +144,8 @@ def profile_step(step, n_items: int, unit: str, key: str, tag: str,
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    nccl_ms = sum(e.self_device_time_total for e in events
+                  if "nccl" in e.key.lower()) / 1e3
     top = [{"name": e.key[:80], "calls": e.count,
             "device_ms": e.self_device_time_total / 1e3} for e in events[:12]]
     (out_dir / f"profile_{key}.txt").write_text(prof.key_averages().table(
@@ -138,10 +154,12 @@ def profile_step(step, n_items: int, unit: str, key: str, tag: str,
                    f"{unit}_per_s": n_items / step_ms * 1e3,
                    "profiled_wall_ms": wall_ms,
                    "device_busy_ms": busy_ms,
-                   "device_idle_share": 1 - busy_ms / wall_ms, "top": top}
+                   "device_idle_share": 1 - busy_ms / wall_ms,
+                   "nccl_device_ms": nccl_ms, "top": top}
     print(f"{tag} steady {key}: {n_items} {unit} in {step_ms:.3f} ms"
           f" ({n_items / step_ms * 1e3:.0f} {unit}/s); profiled "
-          f"step {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device-busy")
+          f"step {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device-busy, "
+          f"{nccl_ms:.3f} ms in NCCL kernels")
     for t in top:
         print(f"{tag}   {t['device_ms']:9.3f} ms  x{t['calls']:<3d} "
               f"{t['name']}")
@@ -150,12 +168,14 @@ def profile_step(step, n_items: int, unit: str, key: str, tag: str,
 def main() -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.distributed import make_sharded_locs
     from repro_torch.core.encoding import revcomp
     from repro_torch.core.long_read import (
         _anchor_windows, candidate_diagonals, segment_views)
@@ -172,10 +192,12 @@ def main() -> int:
     from repro_torch.kernels.candidate_align.ops import candidate_pair_align
     from repro_torch.kernels.location_vote.ops import location_vote
     from repro_torch.kernels.pair_frontend.ops import (
-        frontend_from_buckets, seed_buckets, segment_pair_frontend)
+        frontend_from_buckets, frontend_merge_filter, seed_buckets,
+        segment_pair_frontend)
     from repro_torch.kernels.pair_frontend.ref import (
-        frontend_from_buckets_ref, seed_buckets_ref)
+        frontend_from_buckets_ref, merge_filter_ref, seed_buckets_ref)
     from repro_torch.kernels.residual_dp.ops import residual_pair_dp
+    from repro_torch.launch.mesh import make_mesh
 
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -341,6 +363,88 @@ def main() -> int:
     print(f"[2b] steady map_long: {record['long_step']['mbp_per_s']:.1f} "
           f"Mbp/s")
 
+    # ---- 2c. the mesh plans on one card ------------------------------------
+    store = (out_dir / "nccl_store").resolve()
+    store.unlink(missing_ok=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host, one rank
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=300))
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    print(f"[2c] mesh: {mesh}")
+
+    def same_result(got, name):
+        for f in got._fields:
+            if not torch.equal(getattr(got, f), getattr(res, f)):
+                raise RuntimeError(f"the {name} session differs from the "
+                                   f"replicated kernel session in {f}")
+
+    t0 = time.time()
+    smapper = Mapper.build(ref, sm_cfg, pipe, ExecutionConfig(
+        device="cuda", mesh=mesh, shard_index=True))
+    torch.cuda.synchronize()
+    record["sharded_build_s"] = time.time() - t0
+    print(f"[2c] shard_index session: shard {smapper.index.shard_id} of "
+          f"{smapper.index.offsets.shape[0] - 1} buckets and "
+          f"{smapper.index.locations.shape[0]} locations, built in "
+          f"{record['sharded_build_s']:.1f} s")
+    mesh_launches = {}
+    mesh_records = {}
+    dmapper = Mapper.from_index(mapper.index, mapper.ref, pipe,
+                                ExecutionConfig(device="cuda", mesh=mesh))
+    for plan, m in (("sharded", smapper), ("data_parallel", dmapper)):
+        _cuda.reset_launches()
+        got = m.map(noisy.reads1, noisy.reads2)
+        msr = m.map_stream(stream_batches, reduce_fn=count_correct,
+                           reduce_init=torch.zeros((), dtype=torch.int64,
+                                                   device=dev))
+        mesh_launches[plan] = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        same_result(got, plan)
+        m_within = int(msr.reduced) / msr.n_pairs
+        mesh_records[plan] = {"stream_seconds": msr.seconds,
+                              "stream_pairs_per_s": msr.pairs_per_s,
+                              "within_5": m_within}
+        print(f"[2c] {plan}: launches {mesh_launches[plan]}")
+        print(f"[2c] {plan}: map equals phase 2 on all {len(got._fields)} "
+              f"fields; map_stream {msr.n_pairs} pairs in {msr.seconds:.3f} "
+              f"s ({msr.pairs_per_s:.0f} pairs/s), within 5 bp "
+              f"{m_within:.4f}")
+        if msr.totals != sr.totals:
+            raise RuntimeError(f"{plan} stream totals {msr.totals} differ "
+                               f"from phase 2's {sr.totals}")
+        if m_within < 0.95:
+            raise RuntimeError(f"{plan} stream accuracy below 0.95")
+    sl, dl = mesh_launches["sharded"], mesh_launches["data_parallel"]
+    if not all(sl[k] > 0 for k in SHARDED_KERNELS) or sl["pair_frontend"]:
+        raise RuntimeError(f"the sharded plan's launches are off: {sl}")
+    if not all(dl[k] > 0 for k in PAIR_KERNELS) or dl["merge_filter"]:
+        raise RuntimeError(f"the data-parallel plan's launches are off: {dl}")
+    record["mesh"] = {"launches": mesh_launches, **mesh_records}
+    profile_step(lambda: smapper.map(r1_dev, r2_dev), BATCH, "pairs",
+                 "sharded_step", "[2c]", record, out_dir)
+    # the merge_filter inputs of that step (phase 3), through the real
+    # lookup and all_reduce; and the all_reduce alone, timed
+    r2_fwd_dev = revcomp(r2_dev).contiguous()
+    mf_buckets = seed_buckets(r1_dev, r2_fwd_dev, pipe.seed_len,
+                              pipe.seeds_per_read, sm_cfg.hash_seed,
+                              sm_cfg.table_size)
+    locs_fn = make_sharded_locs(mesh)
+    mf_locs = locs_fn(smapper.index, mf_buckets, pipe.max_locs_per_seed)
+    model_group = mesh.get_group("model")
+    red = mf_locs.clone()
+    allreduce_ms = time_ms(lambda: dist.all_reduce(
+        red, op=dist.ReduceOp.MIN, group=model_group), 20)
+    record["sharded_step"]["all_reduce_ms"] = allreduce_ms
+    record["sharded_step"]["all_reduce_bytes"] = red.numel() * 4
+    print(f"[2c] all_reduce(MIN) of the step's {tuple(red.shape)} int32 "
+          f"locations: {allreduce_ms:.4f} ms by CUDA events, "
+          f"{record['sharded_step']['nccl_device_ms']:.4f} ms of NCCL "
+          f"kernels in the profiled step")
+    del red, dmapper
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
+
     # ---- 3. each kernel against its plain version --------------------------
     # The main path's shapes: the batch `map` got above, and the residual
     # buffer its step 5 builds.
@@ -366,9 +470,12 @@ def main() -> int:
         entry = kernels.setdefault(name, {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name] + long_launches[name],
+            "launches": launches[name] + long_launches[name]
+            + sl[name] + dl[name],
             "launches_pairs": launches[name],
             "launches_long": long_launches[name],
+            "launches_sharded": sl[name],
+            "launches_data_parallel": dl[name],
             "max_abs_err": 0, "match": True, "library_ms": None,
             "checks": 0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -538,6 +645,44 @@ def main() -> int:
                                     "anchor_len": Ra, "window": Wa}
     print(f"[3] long-read batch: {Bl} diagonal rows of {Ml} slots, "
           f"{Ra}-base anchors against {Wa}-base windows")
+
+    # kernel 7: merge + Δ filter of the sharded plan's gathered (B, S, K)
+    # locations of the same batch.  The function's own work: the pair
+    # front end's without the row scan.  Then 4,096 synthetic rows:
+    # all-invalid rows and mates, duplicate-heavy rows, starts near 0 and
+    # locations near -2^31 (their starts wrap).
+    mf_args = (mf_locs[:B], mf_locs[B:], offs, pipe.delta, C)
+    mf = frontend_merge_filter(*mf_args)
+    m1 = mf.n_hits1.double()
+    m2 = mf.n_hits2.double()
+    compare("merge_filter",
+            lambda: frontend_merge_filter(*mf_args),
+            lambda: merge_filter_ref(mf_locs[:B], mf_locs[B:], offs_t,
+                                     pipe.delta, C),
+            n_bytes=2 * B * M * 4 + B * (2 * C + 3) * 4,
+            n_ops=float((2 * nlogn(m1, m1) + 2 * nlogn(m2, m2)
+                         + 2 * nlogn(m1, m2) + 12 * m1).sum()))
+    if not (torch.equal(mf.pos1, fe.pos1) and torch.equal(mf.n, fe.n)):
+        raise RuntimeError("merge_filter on the sharded lookup differs from "
+                           "pair_frontend on the padded rows")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    syn = torch.randint(-40, 200, (2, 4096, S, K), generator=g, device=dev,
+                        dtype=torch.int32)
+    syn[torch.rand(syn.shape, generator=g, device=dev) < 0.3] = INVALID_LOC
+    syn[:, :16] = INVALID_LOC                       # no hits at all
+    syn[1, 16:32] = INVALID_LOC                     # mate 2 without hits
+    syn[:, 32:48] = 60                              # one start per seed
+    syn[:, 48:64, :, :K // 2] = 5                   # half the slots equal
+    syn[:, 64:128] = torch.randint(0, 120, (2, 64, S, K), generator=g,
+                                   device=dev, dtype=torch.int32)
+    syn[:, 128:192] = torch.randint(-(2**31), -(2**31) + 4096,
+                                    (2, 64, S, K), generator=g, device=dev,
+                                    dtype=torch.int32)
+    compare("merge_filter",
+            lambda: frontend_merge_filter(syn[0], syn[1], offs, pipe.delta,
+                                          C),
+            lambda: merge_filter_ref(syn[0], syn[1], offs_t, pipe.delta, C),
+            0, 0, timed=False)
 
     # ---- 4. whole step against the plain-backend Mapper --------------------
     plain = Mapper.from_index(mapper.index, mapper.ref, pipe,

@@ -13,7 +13,9 @@ hold this one against.  Entry point::
 
 Sessions run on the GPU (``ExecutionConfig.device="cuda"``) unless the
 caller asks for the CPU, where every kernel is replaced by its plain
-PyTorch version.
+PyTorch version.  ``ExecutionConfig(mesh=...)`` runs a session on a
+`torch.distributed` mesh (`repro_torch.launch.mesh.make_mesh`), with the
+SeedMap sharded over its ``model`` axis when ``shard_index=True``.
 """
 
 from repro_torch.engine import (  # noqa: E402

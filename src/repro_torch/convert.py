@@ -2,7 +2,8 @@
 
 The system has no weights; its state is the index and the reference.
 These helpers take the JAX package's arrays and config fields as plain
-numpy / dicts (``np.asarray`` of its `SeedMap` / `PaddedSeedMap` fields,
+numpy / dicts (``np.asarray`` of its `SeedMap` / `PaddedSeedMap` /
+`ShardedSeedMap` fields,
 ``dataclasses.asdict`` of its configs), so both packages can map against
 the same index without this package importing the other.
 """
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import SeedMapShard, ShardedSeedMap
 from repro_torch.core.long_read import LongReadConfig
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.scoring import Scoring
@@ -73,3 +75,19 @@ def padded_from_numpy(rows, counts, config_fields: dict,
         rows=torch.tensor(np.asarray(rows, np.int32), device=device),
         counts=torch.tensor(np.asarray(counts, np.int32), device=device),
         config=config_from_fields(SeedMapConfig, config_fields))
+
+
+def sharded_from_numpy(offsets, locations, config_fields: dict,
+                       shard: int | None = None, device="cpu"
+                       ) -> ShardedSeedMap | SeedMapShard:
+    """The JAX `ShardedSeedMap`'s arrays (offsets (D, T/D + 1), locations
+    (D, Nmax)) -> this package's `ShardedSeedMap`, or with ``shard`` the
+    `SeedMapShard` one rank of the model axis keeps."""
+    ssm = ShardedSeedMap(
+        offsets=torch.tensor(np.asarray(offsets, np.int32)),
+        locations=torch.tensor(np.asarray(locations, np.int32)),
+        config=config_from_fields(SeedMapConfig, config_fields))
+    if shard is not None:
+        return ssm.shard(shard, device)
+    return ssm._replace(offsets=ssm.offsets.to(device),
+                        locations=ssm.locations.to(device))

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.dp_fallback import NEG
 from repro_torch.core.encoding import revcomp
-from repro_torch.core.pair_filter import CandidateSet, paired_adjacency_filter
+from repro_torch.core.pair_filter import paired_adjacency_filter
 from repro_torch.core.query import padded_rows_device, query_read_batch
 from repro_torch.core.scoring import Scoring
 from repro_torch.core.seeding import seed_read_batch
@@ -161,11 +161,13 @@ def residual_buffer(pair, needs_dp: torch.Tensor, cap: int) -> ResidualBuffer:
 
 def _residual_dp_stage(ref, reads1, reads2_fwd, pair, passed, light_ok,
                        cfg: PipelineConfig, packed: bool, backend: str,
-                       kref=None):
+                       kref=None, split=None):
     """Step 5: the fixed-capacity, single-mate-aware banded DP fallback.
 
     Returns ``(score1, score2, dp_done, dp_overflow, dp_mate1, dp_mate2)``,
     all (B,): a passing mate of a re-aligned row keeps its light score.
+    With ``split`` (a `core.distributed.RowSplit`) the batch's buffer is
+    filled as one, and each data rank aligns its share of the buffer rows.
     """
     B = passed.shape[0]
     dev = passed.device
@@ -178,12 +180,23 @@ def _residual_dp_stage(ref, reads1, reads2_fwd, pair, passed, light_ok,
 
     buf = residual_buffer(pair, needs_dp, cap)
     dp_idx = buf.idx
+    idx, need1, need2 = dp_idx, buf.need1, buf.need2
+    if split is not None:
+        # filler rows (nothing to align) up to a multiple of the ranks
+        pad = -cap % split.size
+        idx = torch.cat([idx, idx[:1].expand(pad)])
+        need1, need2 = (torch.cat([x, x.new_zeros(pad)])
+                        for x in (need1, need2))
+        idx, need1, need2 = (split.rows(x) for x in (idx, need1, need2))
     dp = residual_pair_dp(
-        ref, reads1[dp_idx], reads2_fwd[dp_idx], pair.pos1[dp_idx],
-        pair.pos2[dp_idx], buf.need1, buf.need2, cfg.dp_pad, band=cfg.band(),
-        scoring=cfg.scoring, packed_ref=packed, backend=backend, kref=kref)
-    sc1 = torch.where(buf.need1, dp.score1, pair.score1[dp_idx])
-    sc2 = torch.where(buf.need2, dp.score2, pair.score2[dp_idx])
+        ref, reads1[idx], reads2_fwd[idx], pair.pos1[idx], pair.pos2[idx],
+        need1, need2, cfg.dp_pad, band=cfg.band(), scoring=cfg.scoring,
+        packed_ref=packed, backend=backend, kref=kref)
+    dp_s1, dp_s2 = dp.score1, dp.score2
+    if split is not None:
+        dp_s1, dp_s2 = (x[:cap] for x in split.gather((dp_s1, dp_s2)))
+    sc1 = torch.where(buf.need1, dp_s1, pair.score1[dp_idx])
+    sc2 = torch.where(buf.need2, dp_s2, pair.score2[dp_idx])
 
     def scatter(base, vals):
         out = base.clone()
@@ -205,6 +218,7 @@ def map_pairs_impl(
     cfg: PipelineConfig = PipelineConfig(),
     backend: str = "auto",
     kref: KernelRef | None = None,
+    split=None,
 ) -> MapResult:
     """Map a batch of FR read pairs; reads2 is as-sequenced (reverse strand).
 
@@ -215,33 +229,57 @@ def map_pairs_impl(
     out per call (test scales only).  ``backend`` ("auto" | "cuda" |
     "torch") picks the kernels or their plain versions for every step;
     ``kref`` is ``ref`` padded once for the window kernels (built per call
-    when None).
+    when None).  ``split``: see `map_batch`.
+    """
+    backend = resolve_backend(backend, reads1.device)
+
+    def front(r1, r2_fwd):
+        if isinstance(sm, SeedMap) and backend == "torch":
+            hs = sm.config.hash_seed
+            q1 = query_read_batch(
+                sm, seed_read_batch(r1, cfg.seed_len, cfg.seeds_per_read, hs),
+                cfg.max_locs_per_seed)
+            q2 = query_read_batch(
+                sm, seed_read_batch(r2_fwd, cfg.seed_len, cfg.seeds_per_read,
+                                    hs), cfg.max_locs_per_seed)
+            return ((q1.n_hits > 0) & (q2.n_hits > 0),
+                    paired_adjacency_filter(q1, q2, cfg.delta,
+                                            cfg.max_candidates))
+        rows = (sm.rows if isinstance(sm, PaddedSeedMap)
+                else padded_rows_device(sm, cfg.max_locs_per_seed))
+        fe = pair_frontend(rows, r1, r2_fwd, cfg.seed_len,
+                           cfg.seeds_per_read, sm.config.hash_seed, cfg.delta,
+                           cfg.max_candidates, backend=backend)
+        return (fe.n_hits1 > 0) & (fe.n_hits2 > 0), fe
+
+    return map_batch(front, ref, reads1, reads2, cfg, backend, kref, split)
+
+
+def map_batch(front, ref: torch.Tensor, reads1: torch.Tensor,
+              reads2: torch.Tensor, cfg: PipelineConfig, backend: str,
+              kref: KernelRef | None = None, split=None) -> MapResult:
+    """Steps 1-5 of a batch around its front end, shared by
+    `map_pairs_impl` and the sharded-index serve step
+    (`core.genpairx_step`).
+
+    ``front(reads1, reads2_fwd) -> (had_hits, cands)`` runs steps 1-3
+    (``cands`` holds (B, C) ``pos1`` / ``pos2`` and (B,) ``n``);
+    ``backend`` is resolved.  With ``split`` (a `core.distributed.RowSplit`
+    over the mesh's data axis) the batch is the global one every rank was
+    handed: steps 1-4 run on this rank's rows and are all_gathered, and
+    step 5 fills the global residual buffer, so the result equals the
+    single-device result and every rank returns it.
     """
     B, R = reads1.shape
     if R != cfg.read_len:
         raise ValueError(f"reads are {R} bp, config says {cfg.read_len}")
     reads2_fwd = revcomp(reads2).contiguous()  # reference orientation
+    r1, r2_fwd = reads1, reads2_fwd
+    if split is not None:
+        r1, r2_fwd = split.rows(reads1), split.rows(reads2_fwd)
 
     # -- 1-3. Front end --------------------------------------------------
-    backend = resolve_backend(backend, reads1.device)
-    if isinstance(sm, SeedMap) and backend == "torch":
-        hs = sm.config.hash_seed
-        q1 = query_read_batch(
-            sm, seed_read_batch(reads1, cfg.seed_len, cfg.seeds_per_read, hs),
-            cfg.max_locs_per_seed)
-        q2 = query_read_batch(
-            sm, seed_read_batch(reads2_fwd, cfg.seed_len, cfg.seeds_per_read,
-                                hs), cfg.max_locs_per_seed)
-        had_hits = (q1.n_hits > 0) & (q2.n_hits > 0)
-        cands = paired_adjacency_filter(q1, q2, cfg.delta, cfg.max_candidates)
-    else:
-        rows = (sm.rows if isinstance(sm, PaddedSeedMap)
-                else padded_rows_device(sm, cfg.max_locs_per_seed))
-        fe = pair_frontend(rows, reads1, reads2_fwd, cfg.seed_len,
-                           cfg.seeds_per_read, sm.config.hash_seed, cfg.delta,
-                           cfg.max_candidates, backend=backend)
-        had_hits = (fe.n_hits1 > 0) & (fe.n_hits2 > 0)
-        cands = CandidateSet(pos1=fe.pos1, pos2=fe.pos2, n=fe.n)
+    had_hits, cands = front(r1, r2_fwd)
     passed = cands.n > 0
 
     # -- 4. Light Alignment over candidates ------------------------------
@@ -249,16 +287,19 @@ def map_pairs_impl(
     if packed and ref.dtype != torch.int32:
         raise ValueError("packed_ref needs the int32 packed words")
     pair = candidate_pair_align(
-        ref, reads1, reads2_fwd, cands.pos1, cands.pos2, cfg.max_gap,
+        ref, r1, r2_fwd, cands.pos1, cands.pos2, cfg.max_gap,
         scoring=cfg.scoring, threshold=cfg.threshold(), mode=cfg.light_mode,
         prescreen_top=cfg.prescreen(), packed_ref=packed, backend=backend,
         kref=kref)
+    if split is not None:
+        had_hits, passed, *fields = split.gather((had_hits, passed, *pair))
+        pair = type(pair)(*fields)
     light_ok = passed & pair.ok1 & pair.ok2
 
     # -- 5. DP fallback on the fixed-capacity residual buffer ------------
     dp_sc1, dp_sc2, dp_done, dp_overflow, dp_m1, dp_m2 = _residual_dp_stage(
         ref, reads1, reads2_fwd, pair, passed, light_ok, cfg, packed, backend,
-        kref)
+        kref, split)
 
     # -- assemble ---------------------------------------------------------
     method = torch.full((B,), M_UNMAPPED, dtype=torch.int32,

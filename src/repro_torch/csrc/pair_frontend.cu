@@ -3,34 +3,37 @@
 //
 // Replaces the TPU kernel repro/kernels/pair_frontend/kernel.py ::
 // pair_frontend_pallas (its math is merge_filter_block).  For each pair it
-// gathers the S padded Location-Table rows of K int32 of both mates,
-// turns locations into read starts (loc - seed offset), sorts each mate's
-// M = S*K starts, runs the Δ filter (searchsorted, per-occurrence partner
-// probing, (start1, start2) dedup) and front-compacts <= C candidates.
+// gathers the S padded Location-Table rows of K int32 of both mates and
+// runs merge_filter.cuh's merge_filter_block on them: location -> read
+// start conversion, a stable sort of each mate's M = S*K starts, the Δ
+// filter and front compaction of <= C candidates.
 //
 // Bound on the H100: the function reads 2*S random 128-byte rows per pair
 // (K = 32), about 870 bytes with its ids and outputs, and needs only a
 // stable sort, a searchsorted and a linear dedup/compaction of the few
 // valid starts per mate (O(h log h), h << M = 96), so bytes bound it.
-// This kernel spends O(M^2) compares per mate instead (counting ranks,
-// linear searches, prefix counts), which is where its time over the bound
-// goes; a warp-level sort is the next step.  Design: one thread block
-// per pair; the rows land in shared memory with coalesced 128-byte loads,
-// every element gets its stable rank #{j : x_j < x_i or (x_j == x_i and
-// j < i)} (the rank the TPU kernel computes), and every later step is one
-// thread per element over shared memory.  Int32 differences are taken in uint32 so
-// they wrap exactly like the reference's int32 arithmetic (an
-// INVALID_LOC partner would overflow a signed subtraction).  The bucket
-// ids come straight from seed_buckets: no bucket*K offset tables.
-#include "common.cuh"
+// This kernel spends O(M^2) compares per mate instead (merge_filter.cuh),
+// which is where its time over the bound goes; a warp-level sort is the
+// next step.  Design: one thread block per pair; each thread reads its
+// element's row slot (a row's K slots are neighbouring threads, so a row
+// is one coalesced 128-byte load) with 64-bit row indices.  The bucket ids
+// come straight from seed_buckets: no bucket*K offset tables.
+#include "merge_filter.cuh"
 
 namespace {
 
-using repro::INVALID_LOC;
-
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
-}
+// Element e = s*K + k of a mate: slot k of the row of its seed s's bucket.
+struct RowLocs {
+  const int* rows;
+  const int* buckets;
+  int B, S, K;
+  long long b;
+  __device__ int operator()(int mate, int e) const {
+    const int s = e / K, k = e % K;
+    const int bucket = buckets[(static_cast<long long>(mate) * B + b) * S + s];
+    return rows[static_cast<long long>(bucket) * K + k];
+  }
+};
 
 __global__ void pair_frontend_kernel(
     const int* __restrict__ rows, int K, const int* __restrict__ buckets,
@@ -38,98 +41,10 @@ __global__ void pair_frontend_kernel(
     int* __restrict__ pos1, int* __restrict__ pos2, int* __restrict__ n_out,
     int* __restrict__ nh1, int* __restrict__ nh2) {
   extern __shared__ int sh[];
-  const int M = S * K;
-  int* raw1 = sh;           // unsorted starts, mate 1
-  int* raw2 = sh + M;       // unsorted starts, mate 2
-  int* s1 = sh + 2 * M;     // sorted starts
-  int* s2 = sh + 3 * M;
-  int* p2 = sh + 4 * M;     // probed partner of s1[i]
-  int* keep = sh + 5 * M;
-  int* cnt = sh + 6 * M;    // hits mate 1, hits mate 2, kept candidates
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < 3) cnt[tid] = 0;
-  __syncthreads();
-
-  // 1. gather rows, locations -> read starts, count hits
-  for (int i = tid; i < 2 * M; i += blockDim.x) {
-    const int mate = i / M, e = i % M, s = e / K, k = e % K;
-    const int bucket = buckets[(static_cast<long long>(mate) * B + b) * S + s];
-    const int loc = rows[static_cast<long long>(bucket) * K + k];
-    int st = INVALID_LOC;
-    if (loc != INVALID_LOC) {
-      st = wrap_sub(loc, offs.v[s]);
-      atomicAdd(&cnt[mate], 1);
-    }
-    (mate ? raw2 : raw1)[e] = st;
-  }
-  __syncthreads();
-
-  // 2. stable counting sort of each mate's starts
-  for (int i = tid; i < 2 * M; i += blockDim.x) {
-    const int mate = i / M, e = i % M;
-    const int* x = mate ? raw2 : raw1;
-    const int v = x[e];
-    int r = 0;
-    for (int j = 0; j < M; ++j) {
-      const int xj = x[j];
-      r += (xj < v) | ((xj == v) & (j < e));
-    }
-    (mate ? s2 : s1)[r] = v;
-  }
-  __syncthreads();
-
-  // 3. partner probe: searchsorted(s2, s1 - delta) + occurrence index
-  for (int i = tid; i < M; i += blockDim.x) {
-    const int v = s1[i];
-    const int target = wrap_sub(v, delta);
-    int lo = 0, occ = 0;
-    for (int j = 0; j < M; ++j) {
-      lo += s2[j] < target;
-      occ += (j < i) & (s1[j] == v);
-    }
-    const int idx = min(max(lo + occ, 0), M - 1);
-    p2[i] = s2[idx];
-  }
-  __syncthreads();
-
-  // 4. within-Δ test and adjacent-pair dedup
-  for (int i = tid; i < M; i += blockDim.x) {
-    const int v = s1[i], q = p2[i];
-    bool within = false;
-    if (q != INVALID_LOC && v != INVALID_LOC) {
-      const uint32_t ud = static_cast<uint32_t>(q) - static_cast<uint32_t>(v);
-      const int d = static_cast<int>(ud);
-      within = static_cast<int>(d < 0 ? 0u - ud : ud) <= delta;
-    }
-    const bool first = i == 0 || s1[i - 1] != v || p2[i - 1] != q;
-    keep[i] = within && first;
-  }
-  __syncthreads();
-
-  // 5. front compaction: kept element i lands at slot #{j < i : keep_j}
-  for (int i = tid; i < M; i += blockDim.x) {
-    if (!keep[i]) continue;
-    int slot = 0;
-    for (int j = 0; j < i; ++j) slot += keep[j];
-    if (slot < C) {
-      pos1[static_cast<long long>(b) * C + slot] = s1[i];
-      pos2[static_cast<long long>(b) * C + slot] = p2[i];
-    }
-    atomicAdd(&cnt[2], 1);
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += blockDim.x) {
-    if (c >= cnt[2]) {
-      pos1[static_cast<long long>(b) * C + c] = INVALID_LOC;
-      pos2[static_cast<long long>(b) * C + c] = INVALID_LOC;
-    }
-  }
-  if (tid == 0) {
-    n_out[b] = min(cnt[2], C);
-    nh1[b] = cnt[0];
-    nh2[b] = cnt[1];
-  }
+  const long long b = blockIdx.x;
+  repro::merge_filter_block(RowLocs{rows, buckets, B, S, K, b}, S * K, K,
+                            offs, delta, C, b, sh, pos1, pos2, n_out, nh1,
+                            nh2);
 }
 
 }  // namespace
@@ -143,10 +58,8 @@ extern "C" int pair_frontend_launch(const void* rows, int K,
                                     void* nh1, void* nh2, void* stream) {
   if (B == 0) return 0;
   const int M = S * K;
-  int threads = ((2 * M + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = (6 * static_cast<size_t>(M) + 3) * sizeof(int);
-  pair_frontend_kernel<<<B, threads, smem,
+  pair_frontend_kernel<<<B, repro::merge_filter_threads(M),
+                         repro::merge_filter_smem(M),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rows), K, static_cast<const int*>(buckets), B,
       S, repro::seed_offsets(static_cast<const int*>(offs_host), S), delta, C,

@@ -4,12 +4,17 @@
 ``packed_ref`` bool and the session's concrete kernel backend (``"cuda"``
 or ``"torch"``), and `resolved_long_read` the long-read lane's config, so
 nothing on the per-batch path resolves anything again.
+
+With ``mesh`` set the session runs one of the two mesh plans: the
+replicated-index data-parallel plan, or with ``shard_index=True`` the
+bucket-sharded SeedMap of the genome-scale serve step.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.long_read import LongReadConfig
 from repro_torch.core.pipeline import PipelineConfig
@@ -32,7 +37,23 @@ class ExecutionConfig:
                   (None: the first batch's row count); ragged tails are
                   padded and masked.
     long_read:    the session's long-read lane (`Mapper.map_long` /
-                  `map_long_stream`); None: `LongReadConfig()`.
+                  `map_long_stream`); None: `LongReadConfig()`.  Refused
+                  on a ``shard_index`` plan, which has no lane.
+    mesh:         a `torch.distributed` DeviceMesh
+                  (`repro_torch.launch.mesh.make_mesh`) to run on (None:
+                  one device).  Every rank calls `map` / `map_stream`
+                  with the same global batch, maps its rows of the
+                  ``batch_axes`` axis and returns the all_gathered global
+                  result.  The session's device is the rank's own: the
+                  current CUDA device on a ``"cuda"`` mesh, the CPU on a
+                  ``"cpu"`` (gloo) one; ``device`` must name that type.
+    batch_axes:   the mesh axis the batch splits over (one axis).
+    model_axis:   the mesh axis the SeedMap shards over (``shard_index``).
+    shard_index:  shard the SeedMap by bucket range along ``model_axis``
+                  (the NMSL channel-striping serve plan,
+                  `core.genpairx_step`); False replicates the index and
+                  runs data-parallel.  Requires ``mesh``; the reference
+                  is packed by default on this plan.
     """
 
     device: str = "cuda"
@@ -40,6 +61,28 @@ class ExecutionConfig:
     packed_ref: bool | None = None
     stream_batch: int | None = None
     long_read: LongReadConfig | None = None
+    mesh: DeviceMesh | None = None
+    batch_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    shard_index: bool = False
+
+    def __post_init__(self):
+        if self.shard_index and self.mesh is None:
+            raise ValueError("shard_index=True requires a mesh")
+        if self.shard_index and self.long_read is not None:
+            raise ValueError(
+                "the long-read lane is not available on shard_index plans")
+        if self.mesh is None:
+            return
+        names = self.mesh.mesh_dim_names or ()
+        if len(self.batch_axes) != 1:
+            raise ValueError(f"the batch splits over one mesh axis, got "
+                             f"batch_axes={self.batch_axes}")
+        needed = self.batch_axes + ((self.model_axis,) if self.shard_index
+                                    else ())
+        missing = [a for a in needed if a not in names]
+        if missing:
+            raise ValueError(f"mesh axes {names} lack {missing}")
 
     def torch_device(self) -> torch.device:
         dev = torch.device(self.device)
@@ -47,17 +90,29 @@ class ExecutionConfig:
             raise RuntimeError(
                 "ExecutionConfig(device='cuda') but torch.cuda.is_available()"
                 " is False; pass device='cpu' to run on the CPU")
+        if self.mesh is None:
+            return dev
+        if dev.type != self.mesh.device_type:
+            raise ValueError(f"device={self.device!r} but the mesh is a "
+                             f"{self.mesh.device_type!r} mesh")
+        if dev.type == "cuda":
+            own = torch.cuda.current_device()
+            if dev.index not in (None, own):
+                raise ValueError(f"device={self.device!r} but this rank's "
+                                 f"mesh device is cuda:{own}")
+            dev = torch.device("cuda", own)
         return dev
 
 
 def resolved_pipeline(pipe_cfg: PipelineConfig, exec_cfg: ExecutionConfig
                       ) -> tuple[PipelineConfig, str]:
     """Resolve every deferred knob for the session: the pipeline config
-    with a concrete ``packed_ref``, and the backend of every step."""
+    with a concrete ``packed_ref`` (default: packed on the sharded-index
+    plan, unpacked otherwise), and the backend of every step."""
     dev = exec_cfg.torch_device()
     packed = exec_cfg.packed_ref
     if packed is None:
-        packed = pipe_cfg.packed(default=False)
+        packed = pipe_cfg.packed(default=exec_cfg.shard_index)
     return (dataclasses.replace(pipe_cfg, packed_ref=bool(packed)),
             resolve_backend(exec_cfg.backend, dev))
 

@@ -5,13 +5,16 @@
 the ``packed_ref`` flavor (2-bit packing the reference on the device), the
 reference padded for the window kernels and the SeedMap layout the step
 consumes: the CSR map on the staged plain path, the bucket-major
-`PaddedSeedMap` for the CUDA front end.
+`PaddedSeedMap` for the CUDA front end, this rank's shard of the
+bucket-sharded map on the sharded-index mesh plan.
 
 ``mapper.map`` maps one batch of read pairs and ``mapper.map_long`` one
 batch of long reads (the lane config is resolved at build, too);
 ``map_stream`` / ``map_long_stream`` stream batches with device-side stage
 totals and one host sync at the end.  All are eager launches on PyTorch's
-current stream.
+current stream.  On a mesh (`ExecutionConfig.mesh`) every rank is handed
+the same global batch, maps its rows of the data axis and all_gathers the
+result, so each call returns the global result on every rank.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import pack_2bit
+from repro_torch.core.distributed import RowSplit, shard_seedmap
+from repro_torch.core.encoding import BASES_PER_WORD, pack_2bit, unpack_2bit
+from repro_torch.core.genpairx_step import make_genpair_serve_step
 from repro_torch.core.long_read import (
     LongReadResult,
     long_stage_stat_counts,
@@ -85,17 +90,28 @@ class Mapper:
     def __init__(self, *, index, ref: torch.Tensor, pipe_cfg: PipelineConfig,
                  exec_cfg: ExecutionConfig, device: torch.device,
                  backend: str):
-        self.index = index           # SeedMap | PaddedSeedMap on `device`
+        self.index = index           # SeedMap | PaddedSeedMap | SeedMapShard
         self.ref = ref               # uint8 bases or int32 packed words
         self.pipe_cfg = pipe_cfg     # fully resolved
         self.exec_cfg = exec_cfg
         self.device = device
         self.backend = backend       # "cuda" or "torch"
-        self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg)
         # the reference padded once for both window kernels (CUDA only)
         width = pipe_cfg.read_len + 2 * max(pipe_cfg.max_gap, pipe_cfg.dp_pad)
         self.kref = (kernel_reference(ref, width, pipe_cfg.packed_ref)
                      if backend == "cuda" else None)
+        mesh = exec_cfg.mesh
+        # this rank's rows of each global batch (None: one device)
+        self._split = (None if mesh is None else
+                       RowSplit.from_mesh(mesh, exec_cfg.batch_axes[0]))
+        self._serve = None           # the sharded-index serve step
+        self.lr_cfg = None           # the long-read lane (not when sharded)
+        if exec_cfg.shard_index:
+            self._serve = make_genpair_serve_step(
+                mesh, pipe_cfg, index.config, backend, exec_cfg.batch_axes,
+                exec_cfg.model_axis, self.kref)
+        else:
+            self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg)
 
     # ------------------------------------------------------------ build --
     @classmethod
@@ -118,7 +134,10 @@ class Mapper:
         reference (or, for a packed session, its int32 2-bit packing).
 
         A `PaddedSeedMap` is taken as-is and its row width becomes the
-        session's ``max_locs_per_seed``.
+        session's ``max_locs_per_seed``.  The sharded-index plan
+        (``shard_index=True``) takes a CSR `SeedMap`, splits it by bucket
+        range over the mesh's model axis on the host and keeps this rank's
+        shard on its device.
         """
         exec_cfg = exec_cfg or ExecutionConfig()
         device = exec_cfg.torch_device()
@@ -127,6 +146,17 @@ class Mapper:
         packed_in = isinstance(ref, torch.Tensor) and ref.dtype == torch.int32
         ref = _as_device(ref, device, torch.int32 if packed_in
                          else torch.uint8)
+        if exec_cfg.shard_index:
+            if not isinstance(sm, SeedMap):
+                raise TypeError("shard_index requires a CSR SeedMap")
+            words = ref if packed_in else pack_2bit(ref)
+            ref_arr = words if cfg.packed_ref else unpack_2bit(
+                words, words.shape[0] * BASES_PER_WORD)
+            mesh, axis = exec_cfg.mesh, exec_cfg.model_axis
+            ssm = shard_seedmap(sm, mesh.shape[mesh.mesh_dim_names.index(axis)])
+            index = ssm.shard(mesh.get_local_rank(axis), device)
+            return cls(index=index, ref=ref_arr, pipe_cfg=cfg,
+                       exec_cfg=exec_cfg, device=device, backend=backend)
         if cfg.packed_ref:
             ref_arr = ref if packed_in else pack_2bit(ref)
         elif packed_in:
@@ -151,13 +181,32 @@ class Mapper:
     # ------------------------------------------------------------- run ---
     def _step(self, reads1: torch.Tensor, reads2: torch.Tensor,
               n) -> MapResult:
-        return _mask_tail(map_pairs_impl(self.index, self.ref, reads1,
-                                         reads2, self.pipe_cfg, self.backend,
-                                         self.kref), n)
+        """Map a batch whose first ``n`` rows are real.  On a mesh every
+        rank is handed the global batch and returns the global result."""
+        if self._serve is not None:
+            res = self._serve(self.index, self.ref, reads1, reads2)
+        else:
+            res = map_pairs_impl(self.index, self.ref, reads1, reads2,
+                                 self.pipe_cfg, self.backend, self.kref,
+                                 self._split)
+        return _mask_tail(res, n)
 
     def _long_step(self, reads: torch.Tensor, n) -> LongReadResult:
-        return _mask_tail(map_long_impl(self.index, self.ref, reads,
-                                        self.lr_cfg, self.backend), n)
+        """`_step` for long reads: each read maps on its own, so on a mesh
+        this rank maps its rows and all_gathers the result."""
+        split = self._split
+        res = map_long_impl(self.index, self.ref,
+                            reads if split is None else split.rows(reads),
+                            self.lr_cfg, self.backend)
+        if split is not None:
+            res = type(res)(*split.gather(res))
+        return _mask_tail(res, n)
+
+    def _need_long_lane(self) -> None:
+        if self.lr_cfg is None:
+            raise NotImplementedError(
+                "the long-read lane is not available on shard_index "
+                "sessions; build a replicated-index Mapper for map_long")
 
     def map(self, reads1, reads2) -> MapResult:
         """Map one batch of FR read pairs (``reads2`` as sequenced)."""
@@ -168,6 +217,7 @@ class Mapper:
     def map_long(self, reads) -> LongReadResult:
         """Map one batch of (B, L) uint8 long reads in reference
         orientation, under the session's lane config (``self.lr_cfg``)."""
+        self._need_long_lane()
         reads = _as_device(reads, self.device, torch.uint8)
         return self._long_step(reads, reads.shape[0])
 
@@ -242,5 +292,6 @@ class Mapper:
         session: `map_stream`'s contract with one read array per item,
         `LongReadResult` batches (tail rows masked through ``n_valid``)
         and the lane's LONG_STAT_KEYS totals."""
+        self._need_long_lane()
         return self._stream("long", batches, on_result, reduce_fn,
                             reduce_init, warmup_batch)

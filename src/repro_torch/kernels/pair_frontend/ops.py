@@ -1,11 +1,13 @@
-"""Public wrapper of the fused pipeline front end (steps 1-3).
+"""Public wrappers of the fused pipeline front end (steps 1-3).
 
 On CUDA tensors `pair_frontend` runs two kernels: `seed_buckets` hashes
 both mates' seeds into (2B, S) bucket ids, and `pair_frontend` gathers
 the padded rows, merges, filters and compacts, so the (B, S, K) location
-tensor and the sorted start lists never reach device memory.  On CPU
-tensors (or with ``backend="torch"``) it runs the plain version in
-`ref.py`.
+tensor and the sorted start lists never reach device memory.
+`frontend_merge_filter` is the post-query entry, for (B, S, K) locations
+already gathered (the sharded-index serve step): one `merge_filter`
+kernel.  On CPU tensors (or with ``backend="torch"``) each runs its plain
+version in `ref.py`.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.kernels._cuda import INT, PTR, U32
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.pair_frontend.ref import (
     FrontendResult,
+    merge_filter_ref,
     pair_frontend_ref,
 )
 
@@ -27,7 +30,25 @@ PAIR_FRONTEND = _cuda.register(
     "pair_frontend", "pair_frontend_launch",
     (PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR))
 
+MERGE_FILTER = _cuda.register(
+    "merge_filter", "merge_filter_launch",
+    (PTR, PTR, INT, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR))
+
 MAX_SHARED = 48 * 1024
+MAX_SEEDS = 16
+
+
+def _check_merge_smem(S: int, K: int) -> None:
+    """The shared merge block holds 6*S*K + 3 ints (merge_filter.cuh)."""
+    if (6 * S * K + 3) * 4 > MAX_SHARED:
+        raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
+
+
+def _frontend_outputs(B: int, C: int, dev) -> tuple:
+    pos1 = torch.empty((B, C), dtype=torch.int32, device=dev)
+    pos2 = torch.empty((B, C), dtype=torch.int32, device=dev)
+    return (pos1, pos2) + tuple(torch.empty((B,), dtype=torch.int32,
+                                            device=dev) for _ in range(3))
 
 
 def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
@@ -39,7 +60,7 @@ def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
     _cuda.check(reads1, "reads1", torch.uint8)
     _cuda.check(reads2, "reads2", torch.uint8, (B, R))
     offs = seed_offsets_tuple(R, seed_len, seeds_per_read)
-    if len(offs) > 16 or seed_len > 64:
+    if len(offs) > MAX_SEEDS or seed_len > 64:
         raise ValueError("seed_buckets supports S <= 16 seeds of <= 64 bp")
     if table_size & (table_size - 1):
         raise ValueError("table_size must be a power of two")
@@ -62,17 +83,42 @@ def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
     C = max_candidates
     _cuda.check(rows, "rows", torch.int32)
     _cuda.check(buckets, "buckets", torch.int32, (2 * B, len(seed_offs)))
-    if (6 * S * K + 3) * 4 > MAX_SHARED:
-        raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
-    dev = rows.device
-    pos1 = torch.empty((B, C), dtype=torch.int32, device=dev)
-    pos2 = torch.empty((B, C), dtype=torch.int32, device=dev)
-    n, nh1, nh2 = (torch.empty((B,), dtype=torch.int32, device=dev)
-                   for _ in range(3))
+    _check_merge_smem(S, K)
+    pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, rows.device)
     PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,
                   _cuda.int_array(seed_offs), delta, C, pos1.data_ptr(),
                   pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
                   nh2.data_ptr(), _cuda.stream_of(rows))
+    return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
+                          n_hits2=nh2)
+
+
+def frontend_merge_filter(
+    locs1: torch.Tensor,     # (B, S, K) int32 per-seed locations, mate 1
+    locs2: torch.Tensor,     # (B, S, K) int32, mate 2
+    seed_offs: tuple,        # the S seed offsets within the read
+    delta: int,
+    max_candidates: int,
+    backend: str = "auto",
+) -> FrontendResult:
+    """Conversion + sorted merge + Δ filter + compaction (steps 2.5-3) of
+    locations already gathered by a (possibly sharded) SeedMap query."""
+    backend = resolve_backend(backend, locs1.device, family="pair_frontend")
+    if backend == "torch":
+        offs = torch.tensor(seed_offs, dtype=torch.int32, device=locs1.device)
+        return merge_filter_ref(locs1, locs2, offs, delta, max_candidates)
+    B, S, K = locs1.shape
+    C = max_candidates
+    _cuda.check(locs1, "locs1", torch.int32, (B, len(seed_offs), K))
+    _cuda.check(locs2, "locs2", torch.int32, (B, S, K))
+    if S > MAX_SEEDS:
+        raise ValueError(f"merge_filter supports S <= {MAX_SEEDS} seeds")
+    _check_merge_smem(S, K)
+    pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, locs1.device)
+    MERGE_FILTER(locs1.data_ptr(), locs2.data_ptr(), B, S, K,
+                 _cuda.int_array(seed_offs), delta, C, pos1.data_ptr(),
+                 pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
+                 nh2.data_ptr(), _cuda.stream_of(locs1))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
                           n_hits2=nh2)
 

@@ -2,8 +2,9 @@
 
 Partitioned Seeding (`core.seeding`), padded-row SeedMap lookup +
 `merge_read_starts` (`core.query`) and Paired-Adjacency Filtering
-(`core.pair_filter`), staged.  The two CUDA kernels of the family compute
-`seed_buckets_ref` and `frontend_from_buckets_ref` respectively.
+(`core.pair_filter`), staged.  The three CUDA kernels of the family compute
+`seed_buckets_ref`, `frontend_from_buckets_ref` and `merge_filter_ref`
+respectively.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.pair_filter import paired_adjacency_filter
-from repro_torch.core.query import QueryResult, merge_read_starts
+from repro_torch.core.query import merge_read_starts
 from repro_torch.core.seeding import extract_seeds, hash_seeds, seed_offsets
 
 
@@ -39,23 +40,27 @@ def seed_buckets_ref(reads: torch.Tensor, seed_len: int, seeds_per_read: int,
     return (hashes & (table_size - 1)).to(torch.int32)
 
 
-def query_rows(rows: torch.Tensor, buckets: torch.Tensor,
-               offsets: torch.Tensor) -> QueryResult:
-    """Padded-row lookup + sorted merge for one mate: rows (T, K),
-    buckets (B, S) -> starts (B, S*K)."""
-    return merge_read_starts(rows[buckets.to(torch.int64)], offsets)
+def merge_filter_ref(locs1: torch.Tensor, locs2: torch.Tensor,
+                     offsets: torch.Tensor, delta: int, max_candidates: int
+                     ) -> FrontendResult:
+    """Merge + Δ filter of locations already gathered: (B, S, K) int32 per
+    mate (INVALID_LOC padded), (S,) seed offsets -> FrontendResult."""
+    q1 = merge_read_starts(locs1, offsets)
+    q2 = merge_read_starts(locs2, offsets)
+    cands = paired_adjacency_filter(q1, q2, delta, max_candidates)
+    return FrontendResult(pos1=cands.pos1, pos2=cands.pos2, n=cands.n,
+                          n_hits1=q1.n_hits, n_hits2=q2.n_hits)
 
 
 def frontend_from_buckets_ref(rows: torch.Tensor, buckets1: torch.Tensor,
                               buckets2: torch.Tensor, offsets: torch.Tensor,
                               delta: int, max_candidates: int
                               ) -> FrontendResult:
-    """Row gather + merge + Δ filter given both mates' (B, S) bucket ids."""
-    q1 = query_rows(rows, buckets1, offsets)
-    q2 = query_rows(rows, buckets2, offsets)
-    cands = paired_adjacency_filter(q1, q2, delta, max_candidates)
-    return FrontendResult(pos1=cands.pos1, pos2=cands.pos2, n=cands.n,
-                          n_hits1=q1.n_hits, n_hits2=q2.n_hits)
+    """Row gather + merge + Δ filter given both mates' (B, S) bucket ids
+    and the padded rows (T, K)."""
+    return merge_filter_ref(rows[buckets1.to(torch.int64)],
+                            rows[buckets2.to(torch.int64)], offsets, delta,
+                            max_candidates)
 
 
 def pair_frontend_ref(rows, reads1, reads2, seed_len: int,

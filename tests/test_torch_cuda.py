@@ -3,11 +3,16 @@ card.  Every comparison is exact equality (all integer arithmetic).
 
 Run on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
-Elsewhere every test skips (decided inside the `dev` fixture).
+Elsewhere every test skips (decided inside the `dev` fixture).  The mesh
+tests run a one-rank NCCL process group (a file store in a temporary
+directory, the loopback interface).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.pipeline import PipelineConfig
@@ -26,6 +31,7 @@ from repro_torch.kernels.candidate_align.ops import candidate_pair_align
 from repro_torch.kernels.location_vote.ops import location_vote
 from repro_torch.kernels.pair_frontend.ops import (
     frontend_from_buckets,
+    frontend_merge_filter,
     seed_buckets,
 )
 from repro_torch.kernels.pair_frontend.ref import (
@@ -33,6 +39,7 @@ from repro_torch.kernels.pair_frontend.ref import (
     seed_buckets_ref,
 )
 from repro_torch.kernels.residual_dp.ops import residual_pair_dp
+from repro_torch.launch.mesh import make_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -186,7 +193,8 @@ def test_mapper_kernels_match_plain_mapper(dev, packed):
     got = kern.map(sim.reads1, sim.reads2)
     torch.cuda.synchronize()
     assert _cuda.launch_counts() == {**dict.fromkeys(PAIR_KERNELS, 1),
-                                     **dict.fromkeys(LONG_ONLY, 0)}
+                                     **dict.fromkeys(LONG_ONLY, 0),
+                                     **dict.fromkeys(MESH_ONLY, 0)}
     want = plain.map(sim.reads1, sim.reads2)
     _same(got, want, f"packed={packed}")
 
@@ -196,6 +204,7 @@ PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
 LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
                 "banded_sw")
 LONG_ONLY = ("location_vote", "banded_sw")
+MESH_ONLY = ("merge_filter",)
 
 
 @pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (256, 64),
@@ -263,10 +272,108 @@ def test_map_long_kernels_match_plain_mapper(dev, packed):
     got = kern.map_long(reads)
     torch.cuda.synchronize()
     assert _cuda.launch_counts() == {
-        **dict.fromkeys(PAIR_KERNELS, 0), **dict.fromkeys(LONG_KERNELS, 1)}
+        **dict.fromkeys(PAIR_KERNELS, 0), **dict.fromkeys(LONG_KERNELS, 1),
+        **dict.fromkeys(MESH_ONLY, 0)}
     want = plain.map_long(reads)                            # staged, CSR
     _same(got, want, f"packed={packed}")
     pos = got.position.cpu().numpy().astype(np.int64)
     assert got.mapped[3:].all() and not got.mapped[2]
     assert (np.abs(pos[3:] - starts[3:]) <= kern.lr_cfg.vote_bin).all()
     assert pos[1] == -64
+
+
+def _merge_locs(dev, b, S, K, seed):
+    """(b, S, K) locations per mate: random near the origin (negative
+    starts), all-invalid rows and mates, duplicate-heavy rows, and
+    locations near -2^31 whose starts wrap."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-40, 200, (2, b, S, K), generator=g, device=dev,
+                      dtype=torch.int32)
+    x[torch.rand(x.shape, generator=g, device=dev) < 0.3] = INVALID_LOC
+    x[:, 0] = INVALID_LOC
+    x[1, 1] = INVALID_LOC
+    x[:, 2] = 60
+    x[:, 3, :, : K // 2] = 5
+    x[:, 4:8] = torch.randint(-(2**31), -(2**31) + 500, (2, 4, S, K),
+                              generator=g, device=dev, dtype=torch.int32)
+    return x[0], x[1]
+
+
+@pytest.mark.parametrize("s,k,delta,c", [
+    (1, 4, 30, 2), (2, 4, 0, 4), (3, 8, 30, 4), (3, 32, 500, 8),
+    (2, 8, 5, 1), (3, 4, 60, 8),
+])
+def test_merge_filter_matches_plain(dev, s, k, delta, c):
+    l1, l2 = _merge_locs(dev, 53, s, k, seed=10 * s + k + c)
+    offs = tuple(int(x) for x in np.round(np.arange(s) * (150 - 50)
+                                          / max(s - 1, 1)))
+    got = frontend_merge_filter(l1, l2, offs, delta, c, backend="cuda")
+    torch.cuda.synchronize()
+    want = frontend_merge_filter(l1, l2, offs, delta, c, backend="torch")
+    _same(got, want, f"S={s} K={k} delta={delta} C={c}")
+    assert int(got.n_hits1[0]) == 0 and int(got.n[1]) == 0
+
+
+def test_merge_filter_equals_pair_frontend_on_gathered_rows(dev):
+    """Both kernels run merge_filter.cuh: locations gathered from the
+    padded rows give pair_frontend's result."""
+    rng = np.random.default_rng(4)
+    T, K, S, B = 64, 8, 3, 40
+    rows = rng.integers(-40, 300, (T, K)).astype(np.int32)
+    rows[rng.random((T, K)) < 0.3] = INVALID_LOC
+    rows = torch.as_tensor(rows, device=dev)
+    buckets = torch.as_tensor(rng.integers(0, T, (2 * B, S)).astype(np.int32),
+                              device=dev)
+    offs = (0, 50, 100)
+    locs = rows[buckets.long()]
+    got = frontend_merge_filter(locs[:B], locs[B:], offs, 100, 4,
+                                backend="cuda")
+    want = frontend_from_buckets(rows, buckets, offs, 100, 4)
+    _same(got, want, "merge_filter vs pair_frontend")
+
+
+def test_merge_filter_rejects_rows_past_shared_memory(dev):
+    l1 = torch.zeros((2, 16, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        frontend_merge_filter(l1, l1, tuple(range(16)), 30, 4,
+                              backend="cuda")
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(dev, tmp_path_factory):
+    """A (1, 1) ("data", "model") CUDA mesh over a one-rank NCCL group."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shard_index", [True, False])
+def test_one_rank_nccl_mesh_mapper_matches_replicated(dev, nccl_mesh,
+                                                      shard_index):
+    rng = np.random.default_rng(7)
+    ref = random_reference(200_000, rng)
+    sim = simulate_pairs(ref, 300, ReadSimConfig(sub_rate=0.02), seed=8)
+    cfg = PipelineConfig(packed_ref=True)
+    sm_cfg = SeedMapConfig(table_bits=18)
+    repl = Mapper.build(ref, sm_cfg, cfg, ExecutionConfig(device="cuda"))
+    mesh = Mapper.build(ref, sm_cfg, cfg, ExecutionConfig(
+        device="cuda", mesh=nccl_mesh, shard_index=shard_index))
+    assert mesh.device == torch.device("cuda", 0)
+    _cuda.reset_launches()
+    got = mesh.map(sim.reads1, sim.reads2)
+    torch.cuda.synchronize()
+    front = {"merge_filter": int(shard_index),
+             "pair_frontend": int(not shard_index)}
+    assert _cuda.launch_counts() == {
+        **dict.fromkeys(PAIR_KERNELS, 1), **dict.fromkeys(LONG_ONLY, 0),
+        **front}
+    _same(got, repl.map(sim.reads1, sim.reads2), f"shard={shard_index}")
+    batches = [(sim.reads1, sim.reads2), (sim.reads1[:77], sim.reads2[:77])]
+    assert mesh.map_stream(iter(batches)).totals == \
+        repl.map_stream(iter(batches)).totals
