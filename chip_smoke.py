@@ -24,14 +24,27 @@ Phases (any failure exits non-zero; nothing is caught):
      phase 2's results field by field and in its stage totals, with the
      launches counted per plan; one steady sharded step is timed and
      profiled (the NCCL collectives' device time included);
+  2d. the building blocks at the pair lane's shapes: `xxhash32` of the
+     (2B*S, 4) packed seed words of phase 2's batch (masked, they must be
+     the `seed_buckets` kernel's bucket ids), `seed_gather` of the padded
+     rows at those ids (merged and filtered, they must give
+     `pair_frontend`'s candidates), and `light_align` of both mates of
+     every pair with a candidate against the window `candidate_align`
+     aligned at the slot it picked (the same score, ok flag and CIGAR),
+     with their launches counted over exactly these three calls;
   3. each kernel against its plain version at the shapes the main paths
      give it: the same 65,536-pair batch `map` got, the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
      size: the unpacked flavor, prescreen_top 4, a band >= W DP), the
      long-read batch's diagonal rows and anchor windows (extra checks:
-     synthetic vote rows, bands 16 and >= W) and the sharded plan's
+     synthetic vote rows, bands 16 and >= W), the sharded plan's
      gathered (B, S, K) locations of the pair batch (extra check: 4,096
-     synthetic rows); exact equality, timed with CUDA events;
+     synthetic rows) and phase 2d's inputs of the building blocks (extra
+     checks: xxhash32 of one row under seeds 0, 99 and 0xFFFFFFFF;
+     light_align in paper mode, at E 0 and 2, on int32 bases and on one
+     row; seed_gather of a float32 table, of 30-wide rows and of ids
+     outside the table); exact equality, timed with CUDA events, and
+     `torch.index_select` timed beside seed_gather;
   4. the same batches through the kernel Mapper and plain-backend
      Mappers on the card (the long-read one on the CSR index, which takes
      the staged path): equal results, field by field;
@@ -73,14 +86,19 @@ REPLACES = {
     "location_vote": "src/repro/kernels/location_vote/kernel.py:148",
     "banded_sw": "src/repro/kernels/banded_sw/kernel.py:224",
     "merge_filter": "src/repro/kernels/pair_frontend/kernel.py:341",
+    "light_align": "src/repro/kernels/light_align/kernel.py:169",
+    "xxhash32": "src/repro/kernels/xxhash/kernel.py:73",
+    "seed_gather": "src/repro/kernels/seed_gather/kernel.py:38",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["xxhash32"] = "src/repro_torch/csrc/xxhash.cu"
 PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
                 "residual_dp")
 LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
                 "banded_sw")
 SHARDED_KERNELS = ("seed_buckets", "merge_filter", "candidate_align",
                    "residual_dp")
+BLOCK_KERNELS = ("light_align", "xxhash32", "seed_gather")
 
 
 def card_line() -> str:
@@ -169,6 +187,8 @@ def main() -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -176,12 +196,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.distributed import make_sharded_locs
-    from repro_torch.core.encoding import revcomp
+    from repro_torch.core.encoding import pack_2bit, revcomp
+    from repro_torch.core.light_align import cigar_ops
     from repro_torch.core.long_read import (
         _anchor_windows, candidate_diagonals, segment_views)
     from repro_torch.core.pipeline import (
         M_LIGHT, PipelineConfig, residual_buffer)
-    from repro_torch.core.seeding import seed_offsets_tuple
+    from repro_torch.core.seeding import (
+        SEED_WORDS, extract_seeds, seed_offsets_tuple)
     from repro_torch.core.seedmap import INVALID_LOC, SeedMap, SeedMapConfig
     from repro_torch.core.simulate import (
         ReadSimConfig, random_reference, simulate_long_reads, simulate_pairs)
@@ -190,6 +212,8 @@ def main() -> int:
     from repro_torch.kernels._util import kernel_reference
     from repro_torch.kernels.banded_sw.ops import banded_sw
     from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+    from repro_torch.kernels.candidate_align.ref import gather_windows
+    from repro_torch.kernels.light_align.ops import light_align
     from repro_torch.kernels.location_vote.ops import location_vote
     from repro_torch.kernels.pair_frontend.ops import (
         frontend_from_buckets, frontend_merge_filter, seed_buckets,
@@ -197,6 +221,8 @@ def main() -> int:
     from repro_torch.kernels.pair_frontend.ref import (
         frontend_from_buckets_ref, merge_filter_ref, seed_buckets_ref)
     from repro_torch.kernels.residual_dp.ops import residual_pair_dp
+    from repro_torch.kernels.seed_gather.ops import seed_gather
+    from repro_torch.kernels.xxhash.ops import xxhash32
     from repro_torch.launch.mesh import make_mesh
 
     out_dir = Path("chiprun_out")
@@ -420,6 +446,9 @@ def main() -> int:
         raise RuntimeError(f"the sharded plan's launches are off: {sl}")
     if not all(dl[k] > 0 for k in PAIR_KERNELS) or dl["merge_filter"]:
         raise RuntimeError(f"the data-parallel plan's launches are off: {dl}")
+    if any(c[k] for c in (launches, long_launches, sl, dl)
+           for k in BLOCK_KERNELS):
+        raise RuntimeError("a building block launched on a main path")
     record["mesh"] = {"launches": mesh_launches, **mesh_records}
     profile_step(lambda: smapper.map(r1_dev, r2_dev), BATCH, "pairs",
                  "sharded_step", "[2c]", record, out_dir)
@@ -445,25 +474,99 @@ def main() -> int:
     dist.destroy_process_group()
     store.unlink(missing_ok=True)
 
-    # ---- 3. each kernel against its plain version --------------------------
-    # The main path's shapes: the batch `map` got above, and the residual
-    # buffer its step 5 builds.
+    # ---- 2d. the building blocks at the pair lane's shapes -----------------
+    # Phase 2's batch, and the main-path kernels' results on it that each
+    # building block is checked against.
     B, C, E, R = BATCH, pipe.max_candidates, pipe.max_gap, pipe.read_len
     S, K = pipe.seeds_per_read, mapper.pipe_cfg.max_locs_per_seed
     M = S * K
     T = sm_cfg.table_size
+    hs = sm_cfg.hash_seed
     words, kref = mapper.ref, mapper.kref
-    bases = torch.as_tensor(ref, device=dev)
-    bases_kref = kernel_reference(bases, kref.pad, False)
     r1 = torch.as_tensor(noisy.reads1, device=dev)
     r2 = revcomp(torch.as_tensor(noisy.reads2, device=dev)).contiguous()
     rows = mapper.index.rows
     offs = seed_offsets_tuple(R, pipe.seed_len, S)
     offs_t = torch.tensor(offs, device=dev)
+    light = dict(scoring=pipe.scoring, threshold=pipe.threshold(),
+                 mode=pipe.light_mode)
+    buckets = seed_buckets(r1, r2, pipe.seed_len, S, hs, T)
+    fe = frontend_from_buckets(rows, buckets, offs, pipe.delta, C)
+    pair = candidate_pair_align(words, r1, r2, fe.pos1, fe.pos2, E,
+                                packed_ref=True, backend="cuda", kref=kref,
+                                **light)
+    # the seeds of both mates packed as core/seeding.py packs them
+    seed_words = pack_2bit(extract_seeds(torch.cat([r1, r2]), pipe.seed_len,
+                                         S), n_words=SEED_WORDS
+                           ).reshape(-1, 4).contiguous()
+    ids = buckets.reshape(-1)
+    # both mates of every pair with a candidate, against the packed window
+    # candidate_align aligned at the slot it picked (mate 2 in reference
+    # orientation)
+    has = fe.n > 0
+    la_reads = torch.cat([r1[has], r2[has]])
+    la_wins = torch.cat([gather_windows(words, p[has], has[has], R, E, True)
+                         for p in (pair.pos1, pair.pos2)])
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hashes = xxhash32(seed_words, hs)
+        gathered = seed_gather(rows, ids)
+        la = light_align(la_reads, la_wins, E, **light)
+        torch.cuda.synchronize()
+    bl = _cuda.launch_counts()
+    record["block_launches"] = bl
+    print(f"[2d] launches of the building blocks: {bl}")
+    (out_dir / "profile_blocks.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=20))
+    block_device_ms = {
+        name: sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and f"{name}_kernel" in e.key) / 1e3
+        for name in BLOCK_KERNELS}
+    print(f"[2d] device time of each kernel's one launch (torch.profiler), "
+          f"ms: {block_device_ms}")
+    if not all(bl[k] > 0 for k in BLOCK_KERNELS) or any(
+            v for k, v in bl.items() if k not in BLOCK_KERNELS):
+        raise RuntimeError(f"the building blocks' launches are off: {bl}")
+    if not torch.equal((hashes & (T - 1)).to(torch.int32),
+                       buckets.reshape(-1)):
+        raise RuntimeError("xxhash32 & (T-1) differs from seed_buckets' ids")
+    locs = gathered.reshape(2 * B, S, K)
+    mf = frontend_merge_filter(locs[:B], locs[B:], offs, pipe.delta, C)
+    for f in fe._fields:
+        if not torch.equal(getattr(mf, f), getattr(fe, f)):
+            raise RuntimeError(f"the rows seed_gather gathered, merged, "
+                               f"differ from pair_frontend's in {f}")
+    n_has = int(has.sum())
+    want_score = torch.cat([pair.score1[has], pair.score2[has]])
+    want_ok = torch.cat([pair.ok1[has], pair.ok2[has]])
+    want_cigar = torch.cat([pair.cigar1[has], pair.cigar2[has]])
+    if not (torch.equal(la.score, want_score) and torch.equal(la.ok, want_ok)
+            and torch.equal(cigar_ops(la.edit_type, la.edit_len,
+                                      la.edit_pos, R), want_cigar)):
+        raise RuntimeError("light_align differs from candidate_align's "
+                           "per-mate score, ok flag or CIGAR")
+    record["blocks"] = {"hashes": ids.numel(), "gathered_rows": ids.numel(),
+                        "aligned_mates": 2 * n_has,
+                        "device_ms": block_device_ms}
+    print(f"[2d] xxhash32 of {ids.numel()} seeds & (T-1) equals seed_buckets;"
+          f" seed_gather of {ids.numel()} {K}-wide rows, merged, equals "
+          f"pair_frontend; light_align of {2 * n_has} mates ({n_has} pairs "
+          f"with a candidate) equals candidate_align's scores, ok flags and "
+          f"CIGARs")
+
+    # ---- 3. each kernel against its plain version --------------------------
+    # The main path's shapes: the batch `map` got above, and the residual
+    # buffer its step 5 builds.
+    bases = torch.as_tensor(ref, device=dev)
+    bases_kref = kernel_reference(bases, kref.pad, False)
     kernels = {}
 
     def compare(name, run_kernel, run_plain, n_bytes, n_ops, timed=True,
-                iters=20):
+                iters=20, library=None):
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -471,11 +574,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches[name] + long_launches[name]
-            + sl[name] + dl[name],
+            + sl[name] + dl[name] + bl[name],
             "launches_pairs": launches[name],
             "launches_long": long_launches[name],
             "launches_sharded": sl[name],
             "launches_data_parallel": dl[name],
+            "launches_blocks": bl[name],
             "max_abs_err": 0, "match": True, "library_ms": None,
             "checks": 0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -486,22 +590,22 @@ def main() -> int:
             entry["plain_ms"] = time_ms(run_plain, 3, warmup=1)
             entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops)
             entry["bound_bytes"], entry["bound_ops"] = n_bytes, n_ops
+            if library is not None:
+                entry["library_ms"] = time_ms(library, iters)
         print(f"[3] {name}: max |kernel - plain| = {err}")
 
     # kernel 1: seed_buckets over both mates
     compare("seed_buckets",
-            lambda: (seed_buckets(r1, r2, pipe.seed_len, S, 0, T),),
+            lambda: (seed_buckets(r1, r2, pipe.seed_len, S, hs, T),),
             lambda: (seed_buckets_ref(torch.cat([r1, r2]), pipe.seed_len, S,
-                                      0, T),),
+                                      hs, T),),
             n_bytes=2 * B * R + 2 * B * S * 4,
             n_ops=2 * B * S * (2 * pipe.seed_len + 40))
-    buckets = seed_buckets(r1, r2, pipe.seed_len, S, 0, T)
 
     # kernel 2: row gather + stable sort + Δ filter + compaction.  The
     # function's own work: each mate's M row slots scanned, its h valid
     # starts sorted (2 h log2 h), a searchsorted of mate 1's into mate 2's
     # (2 h1 log2 h2), and O(h1) probing, dedup and compaction.
-    fe = frontend_from_buckets(rows, buckets, offs, pipe.delta, C)
     h1 = fe.n_hits1.double()
     h2 = fe.n_hits2.double()
 
@@ -525,8 +629,6 @@ def main() -> int:
     # Hamming distance of every valid candidate first.
     W = R + 2 * E
     n_cand = fe.n.long()
-    light = dict(scoring=pipe.scoring, threshold=pipe.threshold(),
-                 mode=pipe.light_mode)
     for packed in (True, False):
         for prescreen in (0, 4):
             aligned = n_cand.clamp(min=1)
@@ -549,9 +651,6 @@ def main() -> int:
                 n_ops=n_align * R * (2 * E + 1) * 6
                 + (2 * int(n_cand.sum()) * R * 2 if prescreen else 0),
                 timed=packed and prescreen == 0)
-    pair = candidate_pair_align(words, r1, r2, fe.pos1, fe.pos2, E,
-                                packed_ref=True, backend="cuda", kref=kref,
-                                **light)
 
     # kernel 4: residual DP of the failed mates in step 5's buffer (the
     # main path's band, and the full DP)
@@ -682,6 +781,68 @@ def main() -> int:
             lambda: frontend_merge_filter(syn[0], syn[1], offs, pipe.delta,
                                           C),
             lambda: merge_filter_ref(syn[0], syn[1], offs_t, pipe.delta, C),
+            0, 0, timed=False)
+
+    # kernel 8: light_align of phase 2d's mates (the function's own work:
+    # (2E+1) shifted passes of ~6 integer operations per base, as
+    # candidate_align's), then paper mode, E 0 and 2 (the centre of each
+    # window), int32 bases and one row
+    Nla = la_reads.shape[0]
+    m = pipe.light_mode
+    cases = ((E, m, torch.uint8, Nla), (E, "paper", torch.uint8, Nla),
+             (0, m, torch.uint8, Nla), (2, m, torch.uint8, Nla),
+             (E, m, torch.int32, Nla), (E, m, torch.uint8, 1))
+    for i, (e, mode, dtype, n) in enumerate(cases):
+        args = (la_reads[:n].to(dtype),
+                la_wins[:n, E - e:E + R + e].contiguous().to(dtype), e)
+        kw = dict(light, mode=mode)
+        compare("light_align",
+                lambda a=args, k=kw: light_align(*a, backend="cuda", **k),
+                lambda a=args, k=kw: light_align(*a, backend="torch", **k),
+                n_bytes=Nla * (R + R + 2 * E) + Nla * 5 * 4,
+                n_ops=Nla * R * (2 * E + 1) * 6, timed=i == 0)
+
+    # kernel 9: xxhash32 of phase 2d's seed words (each hash ~51 integer
+    # operations of xxhash.cuh, 16 bytes in and an int64 out), then one row
+    # under seeds 0, 99 and 0xFFFFFFFF
+    n_h = seed_words.shape[0]
+    compare("xxhash32",
+            lambda: (xxhash32(seed_words, hs, backend="cuda"),),
+            lambda: (xxhash32(seed_words, hs, backend="torch"),),
+            n_bytes=n_h * (16 + 8), n_ops=n_h * 51)
+    for seed in (0, 99, 0xFFFFFFFF):
+        compare("xxhash32",
+                lambda x=seed: (xxhash32(seed_words[:1], x, backend="cuda"),),
+                lambda x=seed: (xxhash32(seed_words[:1], x,
+                                         backend="torch"),),
+                0, 0, timed=False)
+
+    # kernel 10: seed_gather of the padded rows at phase 2d's bucket ids
+    # (4 bytes of id, a K-wide row read and written per id), with
+    # torch.index_select timed beside it; then a float32 table, 30-wide
+    # rows (the 4-byte copy) and ids outside the table
+    if not torch.equal(torch.index_select(rows, 0, ids), gathered):
+        raise RuntimeError("index_select and seed_gather differ")
+    compare("seed_gather",
+            lambda: (seed_gather(rows, ids, backend="cuda"),),
+            lambda: (seed_gather(rows, ids, backend="torch"),),
+            n_bytes=ids.numel() * (4 + 2 * K * 4), n_ops=0,
+            library=lambda: torch.index_select(rows, 0, ids))
+    Ts = 1 << 20
+    edge_ids = torch.tensor([-1, -Ts, -Ts - 1, -100, Ts - 1, Ts, 2**31 - 1,
+                             -2**31], dtype=torch.int32, device=dev)
+    small_ids = torch.cat([ids & (Ts - 1), edge_ids])
+    for table in (rows[:Ts].float(), rows[:Ts, :30].contiguous(),
+                  rows[:Ts]):
+        compare("seed_gather",
+                lambda t=table: (seed_gather(t, small_ids, backend="cuda"),),
+                lambda t=table: (seed_gather(t, small_ids, backend="torch"),),
+                0, 0, timed=False)
+    big_edges = torch.tensor([-1, -T, -T - 1, T - 1, T, 2**31 - 1, -2**31],
+                             dtype=torch.int32, device=dev)
+    compare("seed_gather",
+            lambda: (seed_gather(rows, big_edges, backend="cuda"),),
+            lambda: (seed_gather(rows, big_edges, backend="torch"),),
             0, 0, timed=False)
 
     # ---- 4. whole step against the plain-backend Mapper --------------------

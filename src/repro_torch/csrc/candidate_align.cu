@@ -3,11 +3,12 @@
 //
 // Replaces the TPU kernel repro/kernels/candidate_align/kernel.py ::
 // candidate_align_pallas (its alignment math is light_align/kernel.py ::
-// align_block).  For each pair and each of its C candidates it reads the
-// R + 2E reference window of both mates, optionally ranks candidate pairs
-// by summed zero-shift mismatches and keeps the top P, aligns each mate
-// under the 2E+1 shift hypotheses (best single gap run by min-split, or
-// the paper's zero-mismatch rule), and picks the pair maximising
+// align_block, here light_align.cuh, which light_align.cu shares).  For
+// each pair and each of its C candidates it reads the R + 2E reference
+// window of both mates, optionally ranks candidate pairs by summed
+// zero-shift mismatches and keeps the top P, aligns each mate under the
+// 2E+1 shift hypotheses (best single gap run by min-split, or the paper's
+// zero-mismatch rule), and picks the pair maximising
 // (score1 + score2) * C - j.
 //
 // Bound on the H100: the windows are 2*C*(R+2E) bases per pair (2 bits
@@ -16,95 +17,18 @@
 // (pair, mate, candidate), 2*C threads per pair.  The thread streams its
 // window straight from global memory (raw uint8 bases of the edge-padded
 // reference, or base i of a packed window as
-// (w[(off+i)>>4] >> 2*((off+i)&15)) & 3) and never stores the 2E+1 prefix
-// rows: per shift it makes one pass carrying the two running mismatch
-// counts, keeping the first arg-min split (argmin's tie-break).  The
-// prescreen rank and the final reduction go through shared memory among
-// the pair's threads.
-#include <climits>
-
-#include "common.cuh"
+// (w[(off+i)>>4] >> 2*((off+i)&15)) & 3) into light_align.cuh's one pass
+// per shift.  The prescreen rank and the final reduction go through shared
+// memory among the pair's threads.
+#include "light_align.cuh"
 
 namespace {
 
-using repro::BIG;
 using repro::Scoring;
 
 constexpr int NEG_BIG = -(1 << 20);   // masked-candidate score
 constexpr int MM_BIG = 1 << 20;       // masked-candidate Hamming distance
 constexpr int N_FIELDS = 12;
-
-struct AlignOut {
-  int score, type, len, pos;
-};
-
-// Light Alignment of one read against its window (window base E + s + i
-// faces read base i under shift s).  Mirrors core/light_align.light_align.
-template <bool PACKED>
-__device__ AlignOut light_align_one(const uint8_t* __restrict__ read,
-                                    const void* ref, long long start, int off,
-                                    int R, int E, bool paper,
-                                    const Scoring& sc) {
-  auto mis = [&](int i, int s) -> int {
-    return static_cast<int>(read[i]) !=
-           repro::window_base<PACKED>(ref, start, off, E + s + i);
-  };
-  const int m2 = sc.match + sc.mismatch;
-  int mm_none = 0;
-  for (int i = 0; i < R; ++i) mm_none += mis(i, 0);
-  AlignOut best{sc.match * R - m2 * mm_none, 0, 0, 0};
-
-  for (int k = 1; k <= E; ++k) {
-    const int gap = sc.gap_open + sc.gap_extend * k;
-    // deletion of k: mm(p) = cum0[p] + cum_{+k}[R] - cum_{+k}[p],
-    // p in [1, R-1]
-    {
-      int c0 = 0, cd = 0, best_d = INT_MAX, arg = 0;
-      for (int p = 0; p <= R; ++p) {
-        if (p >= 1 && p <= R - 1 && c0 - cd < best_d) {
-          best_d = c0 - cd;
-          arg = p;
-        }
-        if (p < R) {
-          c0 += mis(p, 0);
-          cd += mis(p, k);
-        }
-      }
-      int mm = best_d == INT_MAX ? BIG : best_d + cd;
-      if (mm >= BIG || (paper && mm != 0)) {
-        mm = BIG;
-        arg = 0;
-      }
-      const int score = mm >= BIG ? -BIG : sc.match * R - m2 * mm - gap;
-      if (score > best.score) best = AlignOut{score, 2, k, arg};
-    }
-    // insertion of k: mm(p) = cum0[p] + cum_{-k}[R] - cum_{-k}[p+k],
-    // p in [1, R-k-1]
-    {
-      int c0 = 0, ci = 0, best_i = INT_MAX, arg = 0;
-      for (int q = 0; q < k; ++q) ci += mis(q, -k);
-      for (int p = 0; p <= R - k; ++p) {
-        if (p >= 1 && p <= R - k - 1 && c0 - ci < best_i) {
-          best_i = c0 - ci;
-          arg = p;
-        }
-        if (p < R - k) {
-          c0 += mis(p, 0);
-          ci += mis(p + k, -k);
-        }
-      }
-      int mm = best_i == INT_MAX ? BIG : best_i + ci;
-      if (mm >= BIG || (paper && mm != 0)) {
-        mm = BIG;
-        arg = 0;
-      }
-      const int score =
-          mm >= BIG ? -BIG : sc.match * (R - k) - m2 * mm - gap;
-      if (score > best.score) best = AlignOut{score, 1, k, arg};
-    }
-  }
-  return best;
-}
 
 template <bool PACKED>
 __global__ void candidate_align_kernel(
@@ -141,6 +65,8 @@ __global__ void candidate_align_kernel(
     off = (mate ? off2 : off1)[idx];
   }
 
+  const repro::RefWindow<PACKED> win{ref, start, off};
+
   const bool prescreen = P > 0 && P < C;
   const int n_align = prescreen ? P : C;
   int j = c;
@@ -148,8 +74,7 @@ __global__ void candidate_align_kernel(
     if (active) {
       int mm0 = 0;
       for (int i = 0; i < R; ++i)
-        mm0 += static_cast<int>(read[i]) !=
-               repro::window_base<PACKED>(ref, start, off, E + i);
+        mm0 += static_cast<int>(read[i]) != win(E + i);
       mmsh[mate * C + c] = mm0;
     }
     __syncthreads();
@@ -168,8 +93,8 @@ __global__ void candidate_align_kernel(
     }
   }
   if (active && j < n_align) {
-    const AlignOut a = light_align_one<PACKED>(read, ref, start, off, R, E,
-                                               paper != 0, sc);
+    const repro::AlignOut a =
+        repro::light_align_one(read, win, R, E, paper != 0, sc);
     const int k = mate * C + j;
     scsh[k] = valid ? a.score : NEG_BIG;
     oksh[k] = (a.score >= threshold) && valid;

@@ -46,6 +46,19 @@ __device__ __forceinline__ int window_base(const void* ref, long long start,
   }
 }
 
+// Base j of a window in the padded reference (raw or packed), read as
+// window_base does: the window kernels' `Window` for gotoh.cuh and
+// light_align.cuh.
+template <bool PACKED>
+struct RefWindow {
+  const void* ref;
+  long long start;
+  int off;
+  __device__ __forceinline__ int operator()(int j) const {
+    return window_base<PACKED>(ref, start, off, j);
+  }
+};
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace repro

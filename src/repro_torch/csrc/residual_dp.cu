@@ -24,17 +24,6 @@ namespace {
 using repro::NEG;
 using repro::Scoring;
 
-// Base j of an item's window in the padded reference (raw or packed).
-template <bool PACKED>
-struct RefWindow {
-  const void* ref;
-  long long start;
-  int off;
-  __device__ int operator()(int j) const {
-    return repro::window_base<PACKED>(ref, start, off, j);
-  }
-};
-
 template <bool PACKED>
 __global__ void residual_dp_kernel(
     const void* __restrict__ ref, const int* __restrict__ sdma,
@@ -52,7 +41,7 @@ __global__ void residual_dp_kernel(
     did[t] = 0;
     return;
   }
-  const RefWindow<PACKED> win{ref, sdma[t], off[t]};
+  const repro::RefWindow<PACKED> win{ref, sdma[t], off[t]};
   const repro::DPOut r = repro::gotoh_dp(reads + t * R, R, W, band, sc, win,
                                          sh + threadIdx.x, blockDim.x);
   score[t] = r.score;

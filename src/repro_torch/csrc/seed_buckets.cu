@@ -1,49 +1,21 @@
 // seed_buckets: Partitioned Seeding (§4.3) of both mates of a batch.
 //
 // Replaces the TPU kernel repro/kernels/pair_frontend/kernel.py ::
-// seed_buckets_pallas (with its hashing unit xxhash/kernel.py ::
-// xxhash32_lanes).  For each read and each of its S seeds it 2-bit packs
-// seed_len <= 64 bases at a fixed offset into four 32-bit words (zero
-// padded, words are sums of shifted codes as in pack_2bit), hashes them
-// with xxHash32 and writes the SeedMap bucket id hash & (T-1).
+// seed_buckets_pallas (its hashing unit is xxhash/kernel.py ::
+// xxhash32_lanes, here xxhash.cuh, which xxhash.cu shares).  For each read
+// and each of its S seeds it 2-bit packs seed_len <= 64 bases at a fixed
+// offset into four 32-bit words (zero padded, words are sums of shifted
+// codes as in pack_2bit), hashes them with xxHash32 and writes the SeedMap
+// bucket id hash & (T-1).
 //
 // Bound on the H100: pure 32-bit integer arithmetic, ~2 ops per packed
 // base plus ~40 for the hash, against a few bytes of input per seed, so it
 // is bound by integer operations.  Design: one thread per (read, seed)
 // running the hash in native uint32_t registers; both mates in one launch
 // (rows [0, B) are mate 1, [B, 2B) mate 2), no padding of the batch.
-#include "common.cuh"
+#include "xxhash.cuh"
 
 namespace {
-
-constexpr uint32_t PRIME1 = 2654435761u;
-constexpr uint32_t PRIME2 = 2246822519u;
-constexpr uint32_t PRIME3 = 3266489917u;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t xx_round(uint32_t acc, uint32_t lane) {
-  return rotl(acc + lane * PRIME2, 13) * PRIME1;
-}
-
-// xxHash32 of a 16-byte message given as four little-endian words.
-__device__ uint32_t xxhash32_16(uint32_t w0, uint32_t w1, uint32_t w2,
-                                uint32_t w3, uint32_t seed) {
-  const uint32_t v1 = xx_round(seed + PRIME1 + PRIME2, w0);
-  const uint32_t v2 = xx_round(seed + PRIME2, w1);
-  const uint32_t v3 = xx_round(seed, w2);
-  const uint32_t v4 = xx_round(seed - PRIME1, w3);
-  uint32_t acc = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
-  acc += 16u;  // total length in bytes
-  acc ^= acc >> 15;
-  acc *= PRIME2;
-  acc ^= acc >> 13;
-  acc *= PRIME3;
-  acc ^= acc >> 16;
-  return acc;
-}
 
 __global__ void seed_buckets_kernel(const uint8_t* __restrict__ reads1,
                                     const uint8_t* __restrict__ reads2,
@@ -66,7 +38,8 @@ __global__ void seed_buckets_kernel(const uint8_t* __restrict__ reads1,
     else if (q == 2) w2 += v;
     else w3 += v;
   }
-  out[t] = static_cast<int>(xxhash32_16(w0, w1, w2, w3, hash_seed) & mask);
+  out[t] = static_cast<int>(
+      repro::xxhash32_16(w0, w1, w2, w3, hash_seed) & mask);
 }
 
 }  // namespace

@@ -15,8 +15,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.encoding import pack_2bit
+from repro_torch.core.light_align import cigar_ops
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.scoring import Scoring
+from repro_torch.core.seeding import SEED_WORDS, extract_seeds
 from repro_torch.core.seedmap import INVALID_LOC, SeedMapConfig
 from repro_torch.core.simulate import (
     ReadSimConfig,
@@ -28,6 +30,8 @@ from repro_torch.engine import ExecutionConfig, Mapper
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.banded_sw.ops import banded_sw
 from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+from repro_torch.kernels.candidate_align.ref import gather_windows
+from repro_torch.kernels.light_align.ops import light_align
 from repro_torch.kernels.location_vote.ops import location_vote
 from repro_torch.kernels.pair_frontend.ops import (
     frontend_from_buckets,
@@ -39,6 +43,8 @@ from repro_torch.kernels.pair_frontend.ref import (
     seed_buckets_ref,
 )
 from repro_torch.kernels.residual_dp.ops import residual_pair_dp
+from repro_torch.kernels.seed_gather.ops import seed_gather
+from repro_torch.kernels.xxhash.ops import xxhash32
 from repro_torch.launch.mesh import make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -194,7 +200,8 @@ def test_mapper_kernels_match_plain_mapper(dev, packed):
     torch.cuda.synchronize()
     assert _cuda.launch_counts() == {**dict.fromkeys(PAIR_KERNELS, 1),
                                      **dict.fromkeys(LONG_ONLY, 0),
-                                     **dict.fromkeys(MESH_ONLY, 0)}
+                                     **dict.fromkeys(MESH_ONLY, 0),
+                                     **dict.fromkeys(BLOCK_KERNELS, 0)}
     want = plain.map(sim.reads1, sim.reads2)
     _same(got, want, f"packed={packed}")
 
@@ -205,6 +212,7 @@ LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
                 "banded_sw")
 LONG_ONLY = ("location_vote", "banded_sw")
 MESH_ONLY = ("merge_filter",)
+BLOCK_KERNELS = ("light_align", "xxhash32", "seed_gather")
 
 
 @pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (256, 64),
@@ -273,7 +281,7 @@ def test_map_long_kernels_match_plain_mapper(dev, packed):
     torch.cuda.synchronize()
     assert _cuda.launch_counts() == {
         **dict.fromkeys(PAIR_KERNELS, 0), **dict.fromkeys(LONG_KERNELS, 1),
-        **dict.fromkeys(MESH_ONLY, 0)}
+        **dict.fromkeys(MESH_ONLY, 0), **dict.fromkeys(BLOCK_KERNELS, 0)}
     want = plain.map_long(reads)                            # staged, CSR
     _same(got, want, f"packed={packed}")
     pos = got.position.cpu().numpy().astype(np.int64)
@@ -372,8 +380,188 @@ def test_one_rank_nccl_mesh_mapper_matches_replicated(dev, nccl_mesh,
              "pair_frontend": int(not shard_index)}
     assert _cuda.launch_counts() == {
         **dict.fromkeys(PAIR_KERNELS, 1), **dict.fromkeys(LONG_ONLY, 0),
-        **front}
+        **dict.fromkeys(BLOCK_KERNELS, 0), **front}
     _same(got, repl.map(sim.reads1, sim.reads2), f"shard={shard_index}")
     batches = [(sim.reads1, sim.reads2), (sim.reads1[:77], sim.reads2[:77])]
     assert mesh.map_stream(iter(batches)).totals == \
         repl.map_stream(iter(batches)).totals
+
+
+# ------------------------------------------------- building-block kernels --
+def _counted(name, fn):
+    """fn() run once, with the check that it launched kernel ``name``."""
+    before = _cuda.KERNELS[name].launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert _cuda.KERNELS[name].launches == before + 1, name
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000, 100_003])
+@pytest.mark.parametrize("seed", [0, 99, 0xFFFFFFFF])
+def test_xxhash32_matches_plain(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(n)
+    w = torch.randint(0, 2**32, (n, 4), generator=g, device=dev,
+                      dtype=torch.int64)
+    w[0] = torch.tensor([0xFFFFFFFF, 0, 0x80000000, 0x7FFFFFFF])
+    want = xxhash32(w, seed, backend="torch")
+    for x in (w, w.to(torch.uint32), w.to(torch.uint32).view(torch.int32)):
+        got = _counted("xxhash32", lambda: xxhash32(x, seed, backend="cuda"))
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_xxhash32_unaligned_and_multidim_words(dev):
+    flat = torch.randint(-2**31, 2**31, (4 * 777 + 1,), device=dev,
+                         dtype=torch.int32)
+    w = flat[1:].reshape(7, 111, 4)                 # 4 bytes off alignment
+    assert w.data_ptr() % 16
+    got = xxhash32(w, 5, backend="cuda")
+    assert tuple(got.shape) == (7, 111)
+    assert torch.equal(got, xxhash32(w, 5, backend="torch"))
+    assert xxhash32(w[:0], backend="cuda").shape == (0, 111)
+
+
+@pytest.mark.parametrize("s,seed_len", [(3, 50), (2, 16), (1, 64)])
+def test_xxhash32_masked_equals_seed_buckets(dev, s, seed_len):
+    """Both kernels run xxhash.cuh: the seed words packed as
+    core/seeding.py packs them, hashed and masked, are seed_buckets' ids."""
+    rng = np.random.default_rng(s)
+    r1 = torch.as_tensor(rng.integers(0, 4, (53, 150), np.uint8), device=dev)
+    r2 = torch.as_tensor(rng.integers(0, 4, (53, 150), np.uint8), device=dev)
+    words = pack_2bit(extract_seeds(torch.cat([r1, r2]), seed_len, s),
+                      n_words=SEED_WORDS)
+    got = xxhash32(words, 7, backend="cuda") & ((1 << 16) - 1)
+    want = seed_buckets(r1, r2, seed_len, s, 7, 1 << 16)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def _la_world(dev, b, r, e, seed):
+    rng = np.random.default_rng(seed)
+    read = rng.integers(0, 4, (b, r), np.uint8)
+    win = rng.integers(0, 4, (b, r + 2 * e), np.uint8)
+    h = b // 2
+    win[:h, e:e + r] = read[:h]                       # exact copies
+    for i in range(h, h + b // 4):                    # one indel each
+        if e == 0:
+            break
+        k = int(rng.integers(1, min(e, 5) + 1))
+        p = int(rng.integers(1, r - k - 1))
+        if i % 2:
+            win[i, e:e + p] = read[i, :p]
+            win[i, e + p + k:e + r + k] = read[i, p:]
+        else:
+            win[i, e:e + p] = read[i, :p]
+            win[i, e + p:e + r - k] = read[i, p + k:]
+    return (torch.as_tensor(read, device=dev),
+            torch.as_tensor(win, device=dev))
+
+
+@pytest.mark.parametrize("b,r,e", [(8, 150, 8), (33, 150, 4), (64, 100, 8),
+                                    (300, 150, 2), (16, 64, 6), (3, 20, 0),
+                                    (1, 150, 8), (77, 700, 8)])
+@pytest.mark.parametrize("mode", ["minsplit", "paper"])
+def test_light_align_matches_plain(dev, b, r, e, mode):
+    read, win = _la_world(dev, b, r, e, b * 1000 + r + e)
+    want = light_align(read, win, e, mode=mode, backend="torch")
+    for dtype in (torch.uint8, torch.int32):
+        got = _counted("light_align", lambda: light_align(
+            read.to(dtype), win.to(dtype), e, mode=mode, backend="cuda"))
+        _same(got, want, f"b={b} r={r} e={e} {mode} {dtype}")
+    sc = Scoring(match=2, mismatch=3, gap_open=4, gap_extend=1)
+    _same(light_align(read, win, e, sc, threshold=40, mode=mode,
+                      backend="cuda"),
+          light_align(read, win, e, sc, threshold=40, mode=mode,
+                      backend="torch"), f"scoring {sc}")
+
+
+def test_light_align_refuses_int32_bases_outside_uint8(dev):
+    read, win = _la_world(dev, 4, 50, 2, 0)
+    bad_read = read.to(torch.int32)
+    bad_read[1, 3] = 256
+    bad_win = win.to(torch.int32)
+    bad_win[2, 7] = -1
+    with pytest.raises(ValueError, match=r"\[0, 255\]"):
+        light_align(bad_read, win, 2, backend="cuda")
+    with pytest.raises(ValueError, match=r"\[0, 255\]"):
+        light_align(read, bad_win, 2, backend="cuda")
+    # the plain version compares the values as they are
+    assert light_align(bad_read, bad_win, 2,
+                       backend="torch").score.shape == (4,)
+
+
+def test_light_align_rejects_rows_past_shared_memory(dev):
+    read, win = _la_world(dev, 4, 1000, 8, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        light_align(read, win, 8, backend="cuda")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("mode", ["minsplit", "paper"])
+def test_light_align_equals_candidate_align_per_mate(dev, packed, mode):
+    """Both kernels run light_align.cuh: each mate aligned against the
+    window candidate_align aligned at the slot it picked gives that mate's
+    score, ok flag and CIGAR."""
+    ref, r1, r2, p1, p2 = _cand_world(dev, seed=11)
+    ref_in = pack_2bit(ref) if packed else ref
+    pair = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, mode=mode,
+                                packed_ref=packed, backend="cuda")
+    R = r1.shape[1]
+    for reads, pos, score, ok, cigar in (
+            (r1, pair.pos1, pair.score1, pair.ok1, pair.cigar1),
+            (r2, pair.pos2, pair.score2, pair.ok2, pair.cigar2)):
+        valid = pos != INVALID_LOC
+        assert int(valid.sum()) > 5
+        win = gather_windows(ref_in, pos, valid, R, 8, packed)
+        la = light_align(reads[valid], win[valid], 8, mode=mode,
+                         backend="cuda")
+        assert torch.equal(la.score, score[valid])
+        assert torch.equal(la.ok, ok[valid])
+        assert torch.equal(cigar_ops(la.edit_type, la.edit_len,
+                                     la.edit_pos, R), cigar[valid])
+
+
+@pytest.mark.parametrize("t,cap,n", [(64, 16, 40), (128, 32, 128),
+                                      (16, 8, 3), (1000, 7, 5000),
+                                      (4096, 32, 100_000)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_seed_gather_matches_plain(dev, t, cap, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(t + cap + n)
+    table = torch.randint(-1000, 1000, (t, cap), generator=g,
+                          device=dev).to(dtype)
+    ids = torch.randint(-2 * t, 2 * t, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    edges = torch.tensor([-1, -t, -t - 1, -2**31, t - 1, t, 2**31 - 1, 0])
+    ids[:len(edges[:n])] = edges[:n]
+    got = _counted("seed_gather",
+                   lambda: seed_gather(table, ids, backend="cuda"))
+    assert got.dtype == dtype
+    assert torch.equal(got, seed_gather(table, ids, backend="torch"))
+
+
+def test_seed_gather_out_of_range_rows_and_shapes(dev):
+    table = torch.arange(16 * 8, device=dev, dtype=torch.int32).reshape(16, 8)
+    ids = torch.tensor([-1, -16, -17, -100, 15, 16, 2**31 - 1, -2**31],
+                       device=dev, dtype=torch.int32)
+    got = seed_gather(table, ids, backend="cuda")
+    assert (got[:, 0] // 8).tolist() == [15, 0, 0, 0, 15, 15, 15, 0]
+    ids2 = ids.reshape(2, 4)
+    assert torch.equal(seed_gather(table, ids2, backend="cuda"),
+                       seed_gather(table, ids2, backend="torch"))
+    flat = torch.arange(1 + 64 * 8, device=dev, dtype=torch.float32)
+    unaligned = flat[1:].reshape(64, 8)            # the 4-byte copy path
+    assert unaligned.data_ptr() % 16
+    assert torch.equal(seed_gather(unaligned, ids, backend="cuda"),
+                       seed_gather(unaligned, ids, backend="torch"))
+    assert seed_gather(table, ids[:0], backend="cuda").shape == (0, 8)
+
+
+def test_building_blocks_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        xxhash32(torch.zeros((3, 4), dtype=torch.int32), backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        light_align(torch.zeros((2, 20), dtype=torch.int32),
+                    torch.zeros((2, 24), dtype=torch.int32), 2,
+                    backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        seed_gather(torch.zeros((4, 8), dtype=torch.float32),
+                    torch.zeros(3, dtype=torch.int32), backend="cuda")
