@@ -1,8 +1,9 @@
 """GenPairX paired-end read mapping in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+kernels for NVIDIA Hopper (sm_90a), and the serving path of the dense LM
+that repro carries beside it.
 
 The package mirrors `repro`'s layout (`core/`, `kernels/<family>/`,
-`engine/`) so each module has an obvious counterpart, but it imports
+`engine/`, `configs/`, `models/`) so each module has an obvious counterpart, but it imports
 neither JAX nor `repro`: the JAX package is only the reference the tests
 hold this one against.  Entry point::
 
@@ -11,9 +12,18 @@ hold this one against.  Entry point::
     res = mapper.map(reads1, reads2)          # read pairs
     long_res = mapper.map_long(long_reads)    # long reads (§4.7)
 
-Sessions run on the GPU (``ExecutionConfig.device="cuda"``) unless the
-caller asks for the CPU, where every kernel is replaced by its plain
-PyTorch version.  ``ExecutionConfig(mesh=...)`` runs a session on a
+The package also serves a dense LM of repro's substrate (yi-6b and its
+family) through the hand-written flash attention kernel::
+
+    from repro_torch.models.model import prefill_step, decode_step
+    logits, cache = prefill_step(params, {"tokens": tokens}, cfg, max_len)
+    logits, cache = decode_step(params, cache, next_tokens, cfg)
+
+Its parameters, caches and smoke batches are made on the GPU
+(``device="cuda"``) unless the caller asks for the CPU.  Mapper sessions
+run on the GPU (``ExecutionConfig.device="cuda"``) unless the caller
+asks for the CPU, where every kernel is replaced by its plain PyTorch
+version.  ``ExecutionConfig(mesh=...)`` runs a session on a
 `torch.distributed` mesh (`repro_torch.launch.mesh.make_mesh`), with the
 SeedMap sharded over its ``model`` axis when ``shard_index=True``.
 """

@@ -1,0 +1,90 @@
+"""ModelConfig: one dataclass describing every architecture of the LM
+substrate, with the same fields as the JAX package's, so that
+``ModelConfig(**dataclasses.asdict(jax_cfg))`` converts one to one.
+
+Only the dense family is served by this package so far
+(`repro_torch.models.transformer.forward` raises for the others).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                # query heads (0 for attn-free SSM)
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    capacity_factor: float = 1.25
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    ssm_conv: int = 4
+
+    # Hybrid (Zamba2): one shared attention block every `attn_every` layers
+    attn_every: int = 0
+
+    # Multimodal backbone stubs
+    m_rope: bool = False
+    vision_tokens: int = 0
+    n_codebooks: int = 0
+
+    # numerics / execution
+    dtype: str = "bfloat16"     # activation/compute dtype
+    param_dtype: str = "float32"
+    remat: bool = True          # no effect here (no backward pass yet)
+    attn_impl: str = "blockwise"   # dense | blockwise | triangle | pallas
+    unroll_scans: bool = False     # no effect here (layers are a loop)
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    use_flash_kernel: bool = False  # prefill through the flash kernel
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def p_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def n_params(self) -> int:
+        """Approximate parameter count of a dense model (reporting only)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        hd = self.hd
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        return L * (attn + 3 * d * f) + V * d * (self.n_codebooks or 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"

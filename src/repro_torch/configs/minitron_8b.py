@@ -1,0 +1,15 @@
+"""minitron-8b [dense]: pruned nemotron. 32L d=4096 32H (kv=8) d_ff=16384
+vocab=256000 [arXiv:2407.14679; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab_size=256000,
+    head_dim=128,
+)

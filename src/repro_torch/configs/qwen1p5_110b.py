@@ -1,0 +1,16 @@
+"""qwen1.5-110b [dense]: QKV bias. 80L d=8192 64H (kv=8) d_ff=49152
+vocab=152064 [hf:Qwen/Qwen1.5-0.5B family; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+)

@@ -1,7 +1,8 @@
 """Carry state from the JAX package into this one.
 
-The system has no weights; its state is the index and the reference.
-These helpers take the JAX package's arrays and config fields as plain
+The mapper has no weights; its state is the index and the reference.
+The LM serving path has weights: `lm_params_from_jax` carries a JAX
+parameter tree across.  These helpers take the JAX package's arrays and config fields as plain
 numpy / dicts (``np.asarray`` of its `SeedMap` / `PaddedSeedMap` /
 `ShardedSeedMap` fields,
 ``dataclasses.asdict`` of its configs), so both packages can map against
@@ -14,11 +15,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.distributed import SeedMapShard, ShardedSeedMap
 from repro_torch.core.long_read import LongReadConfig
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig
+from repro_torch.models.template import leaves
+from repro_torch.models.transformer import model_template
 
 #: JAX PipelineConfig fields with no counterpart here: TPU launch blocks,
 #: and the per-family kernel backends (a session here has one backend,
@@ -91,3 +95,38 @@ def sharded_from_numpy(offsets, locations, config_fields: dict,
         return ssm.shard(shard, device)
     return ssm._replace(offsets=ssm.offsets.to(device),
                         locations=ssm.locations.to(device))
+
+
+def lm_params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
+    """The JAX package's LM parameter tree (nested dicts of numpy leaves,
+    layer-stacked ``(L, ...)``, e.g. ``jax.tree.map(np.asarray, params)``)
+    -> this package's parameters for ``cfg``.
+
+    Every leaf of `model_template` must be there with its shape and no
+    other leaf may be; values and dtypes are kept as they are.
+    """
+    def flat(tree, prefix=""):
+        if not isinstance(tree, dict):
+            yield prefix, tree
+            return
+        for k in sorted(tree):
+            yield from flat(tree[k], f"{prefix}/{k}" if prefix else k)
+
+    given = dict(flat(params_np))
+    want = dict(leaves(model_template(cfg)))
+    if set(given) != set(want):
+        raise ValueError(f"parameter tree mismatch: missing "
+                         f"{sorted(set(want) - set(given))}, unexpected "
+                         f"{sorted(set(given) - set(want))}")
+    out: dict = {}
+    for path, lf in want.items():
+        arr = np.asarray(given[path])
+        if arr.shape != tuple(lf.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, expected "
+                             f"{tuple(lf.shape)}")
+        node = out
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = torch.as_tensor(arr.copy(), device=device)
+    return out

@@ -32,8 +32,8 @@ NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
 # ctypes argument shorthands: every pointer and the stream are c_void_p
-PTR, INT, U32, I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                      ctypes.c_longlong)
+PTR, INT, U32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                           ctypes.c_longlong, ctypes.c_float)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

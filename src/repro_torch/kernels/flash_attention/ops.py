@@ -1,0 +1,70 @@
+"""Public wrapper of the flash attention forward.
+
+On CUDA tensors `flash_attention` launches the hand-written kernel
+(``csrc/flash_attention.cu``); on CPU tensors (or with
+``backend="torch"``) it runs the plain version `ref.attention_ref`.  As
+repro's wrapper, it zero-pads S up to a multiple of `BLOCK` under causal
+masking (padded keys lie above every real row's diagonal, padded rows are
+cut off) and raises for an unaligned S without it, on both backends.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _cuda
+from repro_torch.kernels._cuda import F32, INT, PTR
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+FLASH_ATTENTION = _cuda.register(
+    "flash_attention", "flash_attention_launch",
+    (PTR, PTR, PTR, PTR, INT, INT, INT, INT, F32, INT, INT, PTR))
+
+BLOCK = 128                       # repro's default block_q = block_k
+HEAD_DIMS = (64, 80, 128)         # the kernel's head widths
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: float | None = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """(BH, S, D) attention of q over k, v -> (BH, S, D) in q's dtype.
+
+    k and v are (BH, S, D), or (BH / G, S, D) for grouped-query attention:
+    query row bh reads K/V row bh // G.  Scores are float32, scaled by
+    ``sm_scale`` (default D**-0.5); the causal mask is -1e30.
+    """
+    backend = resolve_backend(backend, q.device, family="flash_attention")
+    BH, S, D = q.shape
+    if k.shape != v.shape or k.shape[1:] != (S, D) or k.shape[0] == 0 \
+            or BH % k.shape[0]:
+        raise ValueError(f"k and v must be (BH / G, S, D) for q of shape "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    pad = (-S) % BLOCK
+    if pad and not causal:
+        raise ValueError(
+            "flash_attention pads S only under causal masking; pad inputs "
+            "to a block multiple for causal=False")
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if backend == "torch":
+        return attention_ref(q, k, v, causal, sm_scale)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head widths "
+                         f"{HEAD_DIMS}, got {D}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the flash_attention kernel takes "
+                        f"{tuple(DTYPES)}, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _cuda.check(t, name, q.dtype)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (q, k, v))
+    out = torch.empty_like(q)
+    FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    BH, BH // k.shape[0], S + pad, D, sm_scale, int(causal),
+                    DTYPES[q.dtype], _cuda.stream_of(q))
+    return out[:, :S] if pad else out

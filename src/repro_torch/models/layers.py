@@ -1,0 +1,233 @@
+"""Shared transformer layers of the dense family: RMSNorm, RoPE, GQA
+attention and the SwiGLU MLP.
+
+Prefill attention takes one of three routes, as in the JAX package: the
+plain O(S^2) `dense_attention` for short prompts, the blockwise online
+softmax (`blockwise_attention`, no S x S scores) and, with
+``cfg.use_flash_kernel``, the hand-written flash kernel
+(`repro_torch.kernels.flash_attention`).  Decode attends one query against
+the KV cache (`decode_attention`).  Shapes keep the JAX package's layout:
+activations (B, S, H, D), weights (d_in, d_out).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.template import Leaf
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------ norms --
+def rmsnorm(x, scale, eps: float):
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+# ------------------------------------------------------------------- rope --
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) int.  Rotates the concatenated
+    halves [x1 cos - x2 sin, x2 cos + x1 sin] in float32."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs              # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------- blockwise attention ----
+def blockwise_attention(q, k, v, block_q: int, block_k: int,
+                        causal: bool = True):
+    """Flash-style attention without S x S scores (plain torch).
+
+    q: (B, S, H, D); k, v: (B, S, KV, D) with H = KV * G.  Every kv block
+    is visited and future ones are masked, as the JAX scan does.  Returns
+    (nq, B, KV, G, bq, D) float32; see `_assemble_blockwise`.
+    """
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    bq = min(block_q, S)
+    bk = min(block_k, S)
+    assert S % bq == 0 and S % bk == 0, (S, bq, bk)
+    nq, nk = S // bq, S // bk
+    scale = D ** -0.5
+    qb = q.reshape(B, nq, bq, KV, G, D).float()
+    kb = k.reshape(B, nk, bk, KV, D).float()
+    vb = v.reshape(B, nk, bk, KV, D).float()
+    pos_q = torch.arange(bq, device=q.device)
+    pos_k = torch.arange(bk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qblk = qb[:, qi]                                  # (B, bq, KV, G, D)
+        m = torch.full((B, KV, G, bq, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, bq, 1), device=q.device)
+        acc = torch.zeros((B, KV, G, bq, D), device=q.device)
+        for ki in range(nk):
+            s = torch.einsum("bqkgd,bckd->bkgqc", qblk, kb[:, ki]) * scale
+            if causal:
+                mask = (qi * bq + pos_q)[:, None] >= (ki * bk + pos_k)[None]
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqc,bckd->bkgqd", p,
+                                             vb[:, ki])
+            m = m_new
+        outs.append(acc / torch.where(l == 0, 1.0, l))
+    return torch.stack(outs)
+
+
+def _assemble_blockwise(outs, B, S, H, D, KV, G, nq, bq):
+    """(nq, B, KV, G, bq, D) -> (B, S, H, D)."""
+    x = outs.movedim(0, 1)                  # (B, nq, KV, G, bq, D)
+    x = x.permute(0, 1, 4, 2, 3, 5)         # (B, nq, bq, KV, G, D)
+    return x.reshape(B, S, H, D)
+
+
+def dense_attention(q, k, v, causal: bool = True):
+    """Reference O(S^2)-memory attention (short prompts); float32 out."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, D)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.float(), k.float()) * (D ** -0.5)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
+    return out.reshape(B, S, H, D)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int):
+    """One-token attention over a KV cache.
+
+    q: (B, 1, H, D); caches: (B, Smax, KV, D); positions >= cache_len are
+    masked.
+    """
+    B, Smax, KV, D = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * (D ** -0.5)
+    pos = torch.arange(Smax, device=q.device)
+    s = torch.where(pos < cache_len, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgc,bckd->bkgd", p / l, v_cache.float())
+    return out.reshape(B, 1, H, D)
+
+
+def cache_write_start(cache_len: int, n: int, max_len: int) -> int:
+    """Where `n` new rows go in a `max_len` cache filled to `cache_len`:
+    clamped so they fit, as ``jax.lax.dynamic_update_slice`` clamps (a
+    decode at ``cache_len >= max_len`` overwrites row max_len - 1)."""
+    return min(max(cache_len, 0), max_len - n)
+
+
+# ------------------------------------------------------------ GQA module ---
+def attention_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
+    """Template for one (optionally layer-stacked) GQA attention block."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    st = stacked
+    sta = tuple("layers" for _ in stacked)
+    t = {
+        "wq": Leaf(st + (d, H * hd), sta + ("embed", "q_heads")),
+        "wk": Leaf(st + (d, KV * hd), sta + ("embed", "kv_heads")),
+        "wv": Leaf(st + (d, KV * hd), sta + ("embed", "kv_heads")),
+        "wo": Leaf(st + (H * hd, d), sta + ("q_heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = Leaf(st + (H * hd,), sta + ("q_heads",), init="zeros")
+        t["bk"] = Leaf(st + (KV * hd,), sta + ("kv_heads",), init="zeros")
+        t["bv"] = Leaf(st + (KV * hd,), sta + ("kv_heads",), init="zeros")
+    return t
+
+
+def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
+                      cache_len: int | None = None, backend: str = "auto"):
+    """GQA attention.  cache=None: full causal (prefill), returns
+    (out, (k, v)); cache=(k_cache, v_cache): decode, writes the new rows
+    into the caches in place and returns (out, (k_cache, v_cache)).
+    ``backend`` picks the flash kernel's backend (`flash_attention`).
+    """
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, KV, hd)
+
+    if cache is not None:
+        k_cache, v_cache = cache
+        at = cache_write_start(cache_len, S, k_cache.shape[1])
+        k_cache[:, at:at + S] = k.to(k_cache.dtype)
+        v_cache[:, at:at + S] = v.to(v_cache.dtype)
+        out = decode_attention(q, k_cache, v_cache, cache_len + S)
+        new_cache = (k_cache, v_cache)
+    else:
+        if cfg.attn_impl == "triangle":
+            raise NotImplementedError(
+                "attn_impl='triangle' (the dry-run's unrolled attention) is "
+                "not ported")
+        if S <= cfg.attn_block_q or S <= 128:
+            out = dense_attention(q, k, v)
+        elif cfg.use_flash_kernel:
+            # (B, S, heads, D) -> (B * heads, S, D); the kernel reads K/V
+            # row bh // G, the rows jnp.repeat(k, G, axis=2) would give
+            def bhd(t):
+                return t.transpose(1, 2).reshape(-1, S, hd)
+            o = flash_attention(bhd(q), bhd(k), bhd(v), causal=True,
+                                backend=backend)
+            out = o.reshape(B, H, S, hd).transpose(1, 2)
+        else:
+            bq = min(cfg.attn_block_q, S)
+            outs = blockwise_attention(q, k, v, cfg.attn_block_q,
+                                       cfg.attn_block_k, causal=True)
+            out = _assemble_blockwise(outs, B, S, H, hd, KV, H // KV,
+                                      S // bq, bq)
+        new_cache = (k, v)
+    out = out.to(dt).reshape(B, S, H * hd)
+    return out @ p["wo"].to(dt), new_cache
+
+
+# -------------------------------------------------------------- SwiGLU -----
+def mlp_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    st = stacked
+    sta = tuple("layers" for _ in stacked)
+    return {
+        "w_gate": Leaf(st + (d, f), sta + ("embed", "ff")),
+        "w_up": Leaf(st + (d, f), sta + ("embed", "ff")),
+        "w_down": Leaf(st + (f, d), sta + ("ff", "embed")),
+    }
+
+
+def mlp_forward(p, x):
+    dt = x.dtype
+    g = x @ p["w_gate"].to(dt)
+    u = x @ p["w_up"].to(dt)
+    return (F.silu(g) * u) @ p["w_down"].to(dt)

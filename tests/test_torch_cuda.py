@@ -1,5 +1,9 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the
-card.  Every comparison is exact equality (all integer arithmetic).
+card.  Every comparison of the mapping kernels is exact equality (all
+integer arithmetic); flash_attention, a float kernel, is held within 1e-4
+(float32: the sums run in another order) or 3e-2 (bf16, repro's bf16
+tolerance) of its plain version, and the LM prefill through it within a
+relative L2 error of 1e-2 of the plain-backend prefill.
 
 Run on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -7,6 +11,7 @@ Elsewhere every test skips (decided inside the `dev` fixture).  The mesh
 tests run a one-rank NCCL process group (a file store in a temporary
 directory, the loopback interface).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -14,6 +19,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.light_align import cigar_ops
 from repro_torch.core.pipeline import PipelineConfig
@@ -31,6 +37,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.banded_sw.ops import banded_sw
 from repro_torch.kernels.candidate_align.ops import candidate_pair_align
 from repro_torch.kernels.candidate_align.ref import gather_windows
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.light_align.ops import light_align
 from repro_torch.kernels.location_vote.ops import location_vote
 from repro_torch.kernels.pair_frontend.ops import (
@@ -46,6 +53,8 @@ from repro_torch.kernels.residual_dp.ops import residual_pair_dp
 from repro_torch.kernels.seed_gather.ops import seed_gather
 from repro_torch.kernels.xxhash.ops import xxhash32
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import make_smoke_batch, model_init_params
+from repro_torch.models.model import prefill_step
 
 pytestmark = pytest.mark.cuda
 
@@ -201,7 +210,8 @@ def test_mapper_kernels_match_plain_mapper(dev, packed):
     assert _cuda.launch_counts() == {**dict.fromkeys(PAIR_KERNELS, 1),
                                      **dict.fromkeys(LONG_ONLY, 0),
                                      **dict.fromkeys(MESH_ONLY, 0),
-                                     **dict.fromkeys(BLOCK_KERNELS, 0)}
+                                     **dict.fromkeys(BLOCK_KERNELS, 0),
+                                     **dict.fromkeys(LM_KERNELS, 0)}
     want = plain.map(sim.reads1, sim.reads2)
     _same(got, want, f"packed={packed}")
 
@@ -213,6 +223,7 @@ LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
 LONG_ONLY = ("location_vote", "banded_sw")
 MESH_ONLY = ("merge_filter",)
 BLOCK_KERNELS = ("light_align", "xxhash32", "seed_gather")
+LM_KERNELS = ("flash_attention",)
 
 
 @pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (256, 64),
@@ -281,7 +292,8 @@ def test_map_long_kernels_match_plain_mapper(dev, packed):
     torch.cuda.synchronize()
     assert _cuda.launch_counts() == {
         **dict.fromkeys(PAIR_KERNELS, 0), **dict.fromkeys(LONG_KERNELS, 1),
-        **dict.fromkeys(MESH_ONLY, 0), **dict.fromkeys(BLOCK_KERNELS, 0)}
+        **dict.fromkeys(MESH_ONLY, 0), **dict.fromkeys(BLOCK_KERNELS, 0),
+        **dict.fromkeys(LM_KERNELS, 0)}
     want = plain.map_long(reads)                            # staged, CSR
     _same(got, want, f"packed={packed}")
     pos = got.position.cpu().numpy().astype(np.int64)
@@ -380,7 +392,8 @@ def test_one_rank_nccl_mesh_mapper_matches_replicated(dev, nccl_mesh,
              "pair_frontend": int(not shard_index)}
     assert _cuda.launch_counts() == {
         **dict.fromkeys(PAIR_KERNELS, 1), **dict.fromkeys(LONG_ONLY, 0),
-        **dict.fromkeys(BLOCK_KERNELS, 0), **front}
+        **dict.fromkeys(BLOCK_KERNELS, 0), **dict.fromkeys(LM_KERNELS, 0),
+        **front}
     _same(got, repl.map(sim.reads1, sim.reads2), f"shard={shard_index}")
     batches = [(sim.reads1, sim.reads2), (sim.reads1[:77], sim.reads2[:77])]
     assert mesh.map_stream(iter(batches)).totals == \
@@ -565,3 +578,62 @@ def test_building_blocks_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         seed_gather(torch.zeros((4, 8), dtype=torch.float32),
                     torch.zeros(3, dtype=torch.int32), backend="cuda")
+
+
+# -------------------------------------------------------- flash_attention --
+@pytest.mark.parametrize("dtype,bh,g,s,d,causal", [
+    (torch.bfloat16, 16, 8, 2048, 128, True),    # yi-6b's shapes, BH cut
+    (torch.float32, 16, 8, 2048, 128, True),
+    (torch.bfloat16, 16, 8, 2000, 128, True),    # unaligned S, padded
+    (torch.float32, 16, 8, 2000, 128, True),
+    (torch.bfloat16, 16, 8, 2048, 128, False),
+    (torch.float32, 8, 1, 1024, 128, False),
+    (torch.bfloat16, 32, 1, 512, 80, True),      # stablelm's head width
+    (torch.float32, 32, 1, 512, 80, True),
+    (torch.bfloat16, 32, 4, 384, 64, True),
+    (torch.float32, 32, 4, 384, 64, False),
+    (torch.bfloat16, 3, 3, 128, 64, True),
+])
+def test_flash_attention_matches_plain(dev, dtype, bh, g, s, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(bh * s + d)
+    q = torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((bh // g, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((bh // g, s, d), generator=gen, device=dev).to(dtype)
+    got = _counted("flash_attention",
+                   lambda: flash_attention(q, k, v, causal, backend="cuda"))
+    want = flash_attention(q, k, v, causal, backend="torch")
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_attention_refuses_what_the_kernel_cannot_take(dev):
+    q = torch.zeros((2, 128, 16), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q, q, q, backend="cuda")
+    q = torch.zeros((2, 128, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q, q, q, backend="cuda")
+    q = torch.zeros((2, 128, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q, backend="cuda")
+
+
+def test_lm_prefill_through_the_kernel_matches_plain(dev):
+    """Two layers of yi-6b at full width: a 2 x 1,024-token prefill through
+    the flash kernel against the plain-backend prefill."""
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2,
+                              use_flash_kernel=True)
+    params = model_init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    batch = make_smoke_batch(cfg, 2, 1024, seed=1, device=dev)
+    before = _cuda.KERNELS["flash_attention"].launches
+    got, cache = prefill_step(params, batch, cfg, 1040)
+    torch.cuda.synchronize()
+    assert _cuda.KERNELS["flash_attention"].launches == before + 2
+    want, want_cache = prefill_step(params, batch, cfg, 1040,
+                                    backend="torch")
+    assert got.shape == (2, cfg.vocab_size) and bool(got.isfinite().all())
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 1e-2, rel
+    assert cache.kv_k.shape == (2, 2, 1040, 4, 128) and cache.length == 1024
