@@ -46,7 +46,9 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain version at the shapes the main paths
      give it: the same 65,536-pair batch `map` got, the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
-     size: the unpacked flavor, prescreen_top 4, a band >= W DP), the
+     size: the unpacked flavor, prescreen_top 4, a band >= W DP; the
+     batch with every candidate slot valid, timed apart, and the number of
+     alignments candidate_align ran against the bound's count), the
      long-read batch's diagonal rows and anchor windows (extra checks:
      synthetic vote rows, bands 16 and >= W), the sharded plan's
      gathered (B, S, K) locations of the pair batch (extra check: 4,096
@@ -896,6 +898,38 @@ def main() -> int:
                 n_ops=n_align * R * (2 * E + 1) * 6
                 + (2 * int(n_cand.sum()) * R * 2 if prescreen else 0),
                 timed=packed and prescreen == 0)
+            ran = torch.zeros(1, dtype=torch.int32, device=dev)
+            candidate_pair_align(ref_in, r1, r2, fe.pos1, fe.pos2, E,
+                                 prescreen_top=prescreen, packed_ref=packed,
+                                 backend="cuda", kref=kref_in, count=ran,
+                                 **light)
+            record.setdefault("candidate_align_alignments", []).append(
+                {"packed": packed, "prescreen": prescreen,
+                 "kernel": int(ran), "bound": n_align})
+            print(f"[3] candidate_align (packed {packed}, prescreen "
+                  f"{prescreen}): the kernel ran {int(ran)} alignments; the "
+                  f"bound counts {n_align}")
+    # every slot of every pair valid (the invalid ones of the batch moved
+    # to random starts): nothing to compact, the staging alone; checked,
+    # and timed apart from the main path's case
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dense1, dense2 = (torch.where(
+        p == INVALID_LOC, torch.randint(0, REF_LEN, p.shape, generator=g,
+                                        device=dev, dtype=torch.int32), p)
+        for p in (fe.pos1, fe.pos2))
+    dense_args = (words, r1, r2, dense1, dense2, E)
+    compare("candidate_align",
+            lambda: candidate_pair_align(*dense_args, packed_ref=True,
+                                         backend="cuda", kref=kref, **light),
+            lambda: candidate_pair_align(*dense_args, packed_ref=True,
+                                         backend="torch", **light),
+            0, 0, timed=False, case="every slot valid")
+    kernels["candidate_align"]["dense_ms"] = time_ms(
+        lambda: candidate_pair_align(*dense_args, packed_ref=True,
+                                     backend="cuda", kref=kref, **light), 10)
+    print(f"[3] candidate_align, every slot valid ({2 * B * C} alignments): "
+          f"{kernels['candidate_align']['dense_ms']:.4f} ms")
+    del dense1, dense2, dense_args
 
     # kernel 4: residual DP of the failed mates in step 5's buffer (the
     # main path's band, and the full DP)

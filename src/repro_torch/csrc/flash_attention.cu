@@ -7,31 +7,47 @@
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py ::
 // flash_attention_pallas.  Its sequential third grid axis (kv blocks, the
 // online-softmax state carried in VMEM scratch) becomes a loop inside one
-// block per (bh, 64-row query tile); the state (running max m, sum l and
+// block per (bh, 128-row query tile); the state (running max m, sum l and
 // the output accumulator) stays in registers.  As the TPU kernel: scores
 // in float32, the finite mask value -1e30, m starting at -1e30 and l at 0,
 // l == 0 read as 1 on the output.  Key tiles above the diagonal are
 // skipped: for a row that has seen key 0 they add exactly nothing
-// (p = exp(-1e30 - m) = 0 and the rescale factor is 1).
+// (p = exp(-1e30 - m) = 0 and the rescale factor is 1).  Blocks run
+// longest-first over the causal triangle (the query tile counts down).
 //
 // Bound on the H100 (yi-6b prefill: BH 256, S 2048, D 128, bf16, causal):
 // 4 BH D S(S+1)/2 = 2.75e11 flops of matrix products, 0.28 ms at 989
 // TFLOP/s, against ~0.09 ms for the bytes (q, o and the 8x smaller GQA
 // k, v), so the tensor cores bound it.  Design:
-//   - bf16 inputs: mma.sync m16n8k16 (bf16 in, float32 accumulate) on 4
-//     warps of 16 query rows each.  Q . K^T of bf16 values is exact in
-//     float32 products, so the scores are the float32 scores up to the
-//     order of the sum.  P stays float32 in effect: each p is split into
-//     bf16 hi + lo parts (p - hi rounded again) and P V takes two
-//     products, so P loses ~2^-17 of its value rather than bf16's 2^-9.
-//     The K tile and the V tile (64 keys) are copied to shared memory in
-//     16-byte vectors, rows padded by 16 bytes so that the fragment loads
-//     (32-bit for K, ldmatrix.trans for V) hit 32 distinct banks.
+//   - bf16 inputs, D 64 or 128 (the wrapper zero-pads D 80 to 128, which
+//     adds exact zeros to each score): Hopper's warpgroup products.  A
+//     block of 384 threads: two consumer warpgroups of 64 query rows each
+//     and a producer warpgroup, which gives its registers up to them
+//     (setmaxnreg 24 / 240).  One producer thread loads the Q tile once
+//     and K/V tiles of 128 keys into a 2-stage ring in shared memory by
+//     TMA (cp.async.bulk.tensor, 128-byte swizzle, 64-column boxes), each
+//     stage with a "full" mbarrier (the copy's bytes) and an "empty" one
+//     (the 256 consumer threads' release).  A consumer warpgroup computes
+//     S = Q K^T by wgmma m64n128k16 with Q and K from shared memory
+//     (K-major), the online softmax in registers (exp2 of log2-scaled
+//     scores), and O += P V by wgmma m64nDk16 with P as the register A
+//     operand (the S accumulator's layout is the A fragment's, so P needs
+//     no shuffle) and V from shared memory through the descriptor's
+//     transpose (MN-major).  P stays float32 in effect: each p is split
+//     into a bf16 hi part and the bf16 rounding of p - hi, and P V takes
+//     two products, so P loses ~2^-17 of its value rather than bf16's
+//     2^-9 (a bf16 P alone, one product, ran 0.70 ms against 0.89 at the
+//     prefill's shapes on an H100, but carried a 2-layer yi-6b prefill
+//     1.0e-2 from the plain one, past that check's limit).  Q . K^T of
+//     bf16 values is exact in float32 products.
 //   - float32 inputs: CUDA-core FMAs (a tensor-core product would round
 //     the inputs), a quad of threads per query row, each holding a
 //     quarter of q and of the accumulator, over 32-key tiles in shared
 //     memory.  Off the serving path; it holds the algorithm to float32.
-// Not yet: wgmma, TMA, a pipelined tile ring or warp specialisation.
+// Not yet: a persistent grid, or a TMA store of O.  Ping-pong of the two
+// consumer warpgroups, the next tile's Q K^T issued behind P V, and a
+// third K/V stage were each tried on an H100 and were not faster.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -39,37 +55,204 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// ---- bf16: tensor cores ----------------------------------------------------
-constexpr int BQ = 64;            // query rows per block, 16 per warp
-constexpr int BK = 64;            // keys per tile
-constexpr int MMA_THREADS = BQ / 16 * 32;
+// ---- bf16: wgmma + TMA ------------------------------------------------------
+constexpr int TQ = 128;                  // query rows per block
+constexpr int TK = 128;                  // keys per K/V tile
+constexpr int STAGES = 2;                // K/V tiles in flight
+constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
+constexpr int WG_THREADS = CONSUMERS + 128;  // and a producer warpgroup
+constexpr int SUB = 64;                  // columns of a 128-byte sub-tile
+constexpr int ROW_BYTES = SUB * 2;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// bytes of a 128-row tile: D / 64 sub-tiles
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return D / SUB * 128 * ROW_BYTES;
 }
 
-// Two transposed 8x8 bf16 matrices: rows k0..k0+15 of a row-major tile,
-// 8 columns from `p`'s column; lanes 0-15 name the rows.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(a));
+// shared memory of a block: Q, the K/V ring, 5 barriers, alignment slack
+template <int D>
+__host__ __device__ constexpr int wgmma_smem() {
+  return tile_bytes<D>() * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-column x 128-row box of a 2-D tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle.  K-major (Q, K):
+// SBO 1024 bytes between 8-row groups, LBO unused.  MN-major (V): LBO the
+// bytes between 64-column sub-tiles, SBO 1024 between 8-key groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers an asynchronous product writes (or reads) stay where they are
+// across this point: nothing reads them before the wait, nothing reuses
+// them before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// S[64 x 128] (+)= A . B^T, A and B from shared memory, K-major (SW128)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 128] += A . B, A (bf16 pairs) from registers, B from shared
+// memory MN-major (SW128, transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 64] += A . B, A (bf16 pairs) from registers, B from shared
+// memory MN-major (SW128, transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n64(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // (a, b) as bf16 hi parts and the bf16 rounding of what they miss
@@ -82,80 +265,107 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int BH, int S, int G,
-                 float scale, int causal) {
-  constexpr int KC = D / 16;   // k16 chunks of a head
-  constexpr int DT = D / 8;    // n8 tiles of a head
-  constexpr int NT = BK / 8;   // n8 tiles of a key tile
-  constexpr int RS = D + 8;    // padded shared row (bf16 elements)
-  constexpr int VEC = D / 8;   // 16-byte vectors per row
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * RS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BK * RS];
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int BH, int S, int G,
+                   float scale_log2, int causal) {
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int SUB_BYTES = 128 * ROW_BYTES;   // one 64-column sub-tile
+  constexpr int KSTEPS = D / 16;               // k16 steps of Q K^T
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles need 1024-byte alignment
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + TILE;               // stage s at + s * TILE
+  const uint32_t sv = sk + STAGES * TILE;
+  const uint32_t qbar = sv + STAGES * TILE;
+  const uint32_t full = qbar + 8;              // stage s at + 8 s
+  const uint32_t empty = full + 8 * STAGES;
 
   // blocks in order of falling row count: the longest causal tiles first
-  const int n_q = S / BQ;
-  const int qt = n_q - 1 - static_cast<int>(blockIdx.x / BH);
-  const long long bh = blockIdx.x % BH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + bh * S * D;
-  const __nv_bfloat16* kb = k + (bh / G) * S * D;
-  const __nv_bfloat16* vb = v + (bh / G) * S * D;
-  const int r0 = qt * BQ + warp * 16 + g;   // this lane's rows: r0, r0 + 8
+  const int qt = S / TQ - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int n_kv = causal ? qt + 1 : S / TK;
 
-  uint32_t qf[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    qf[kc][0] = ld32(qb + static_cast<long long>(r0) * D + c);
-    qf[kc][1] = ld32(qb + static_cast<long long>(r0 + 8) * D + c);
-    qf[kc][2] = ld32(qb + static_cast<long long>(r0) * D + c + 8);
-    qf[kc][3] = ld32(qb + static_cast<long long>(r0 + 8) * D + c + 8);
-  }
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};   // this lane's share of each row's sum
-
-  const int n_kv = causal ? qt + 1 : S / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    __syncthreads();   // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < BK * VEC; i += MMA_THREADS) {
-      const int r = i / VEC, c = (i % VEC) * 8;
-      const long long src = static_cast<long long>(kt * BK + r) * D + c;
-      *reinterpret_cast<uint4*>(&Ks[r * RS + c]) =
-          *reinterpret_cast<const uint4*>(kb + src);
-      *reinterpret_cast<uint4*>(&Vs[r * RS + c]) =
-          *reinterpret_cast<const uint4*>(vb + src);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const __nv_bfloat16* kr = &Ks[(nt * 8 + g) * RS + kc * 16 + 2 * t];
-        mma_bf16(s[nt], qf[kc], ld32(kr), ld32(kr + 8));
+  if (threadIdx.x >= CONSUMERS) {   // the producer; one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      const int kv_row = (bh / G) * S;
+      mbar_expect_tx(qbar, TILE);
+      for (int h = 0; h < D / SUB; ++h)
+        tma_load(sq + h * SUB_BYTES, &tq, h * SUB, bh * S + qt * TQ, qbar);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES)   // the consumers released this stage's last tile
+          mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TILE);
+        for (int h = 0; h < D / SUB; ++h) {
+          tma_load(sk + s * TILE + h * SUB_BYTES, &tk, h * SUB,
+                   kv_row + kt * TK, full + 8 * s);
+          tma_load(sv + s * TILE + h * SUB_BYTES, &tv, h * SUB,
+                   kv_row + kt * TK, full + 8 * s);
+        }
       }
     }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's rows of the block's tile: r0 and r0 + 8
+  const int r0 = wg * 64 + (threadIdx.x & 127) / 32 * 16 + g;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
+  float sc[64];
+  uint32_t ph[TK / 16][4], pl[TK / 16][4];   // P's bf16 hi and lo parts
+
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+
+    // S = Q K^T: element sc[4j + e] is row r0 + 8 (e >> 1), key
+    // 8j + 2t + (e & 1) of the tile
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    pin(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = kk / 4 * SUB_BYTES + kk % 4 * 32;
+      wgmma_ss_n128(sc, sw128_desc(sq + wg * 64 * ROW_BYTES + off, 16),
+                    sw128_desc(sk + s * TILE + off, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    pin(sc);
+
     const bool diag = causal && kt == qt;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale;
-        if (diag && kt * BK + nt * 8 + 2 * t + (e & 1) > r0 + (e >> 1) * 8)
-          x = NEG_INF;
-        s[nt][e] = x;
+        float x = sc[4 * j + e] * scale_log2;
+        if (diag && 8 * j + 2 * t + (e & 1) > r0 + (e >> 1) * 8) x = NEG_INF;
+        sc[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
@@ -163,41 +373,48 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float alpha = expf(m[h] - mx[h]);
+      const float alpha = exp2f(m[h] - mx[h]);
       m[h] = mx[h];
       l[h] *= alpha;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        o[dt][2 * h] *= alpha;
-        o[dt][2 * h + 1] *= alpha;
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h] *= alpha;
+        o[4 * j + 2 * h + 1] *= alpha;
       }
     }
+    // the A fragment of keys 16kk..16kk+15 is the accumulator fragments of
+    // score tiles 2kk (keys 2t, 2t+1) and 2kk+1 (keys 2t+8, 2t+9)
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      // the A fragment of keys 16j..16j+15 is the C fragments of score
-      // tiles 2j (columns 2t, 2t+1) and 2j+1 (columns 2t+8, 2t+9)
-      float p[2][4];
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      float p[8];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[u][e] = expf(s[2 * j + u][e] - m[e >> 1]);
-          l[e >> 1] += p[u][e];
-        }
+      for (int e = 0; e < 8; ++e) {
+        p[e] = exp2f(sc[8 * kk + e] - m[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += p[e];
       }
-      uint32_t ph[4], pl[4];
-      split_bf16(p[0][0], p[0][1], ph[0], pl[0]);
-      split_bf16(p[0][2], p[0][3], ph[1], pl[1]);
-      split_bf16(p[1][0], p[1][1], ph[2], pl[2]);
-      split_bf16(p[1][2], p[1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, &Vs[(j * 16 + (lane & 15)) * RS + dt * 8]);
-        mma_bf16(o[dt], ph, b0, b1);
-        mma_bf16(o[dt], pl, b0, b1);
-      }
+      for (int u = 0; u < 4; ++u)
+        split_bf16(p[2 * u], p[2 * u + 1], ph[kk][u], pl[kk][u]);
     }
+
+    // O += P V, once for each part of P: keys 16kk.. of the V tile start
+    // 16kk rows into each sub-tile; the next 64 columns lie one sub-tile
+    // further
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint64_t dv =
+          sw128_desc(sv + s * TILE + kk * 16 * ROW_BYTES, SUB_BYTES);
+      wgmma_pv<D>(o, ph[kk], dv);
+      wgmma_pv<D>(o, pl[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    pin(o);
+    pin(ph);
+    pin(pl);
+    mbar_arrive(empty + 8 * s);
   }
 
 #pragma unroll
@@ -206,16 +423,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (l[h] == 0.f) l[h] = 1.f;
   }
-  __nv_bfloat16* ob = out + bh * S * D;
+  __nv_bfloat16* ob = out + (static_cast<long long>(bh) * S + qt * TQ + r0) * D;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r0) * D +
-                                       c) =
-        __floats2bfloat162_rn(o[dt][0] / l[0], o[dt][1] / l[0]);
-    *reinterpret_cast<__nv_bfloat162*>(
-        ob + static_cast<long long>(r0 + 8) * D + c) =
-        __floats2bfloat162_rn(o[dt][2] / l[1], o[dt][3] / l[1]);
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(ob + c) =
+        __floats2bfloat162_rn(o[4 * j] / l[0], o[4 * j + 1] / l[0]);
+    *reinterpret_cast<__nv_bfloat162*>(ob + 8 * D + c) =
+        __floats2bfloat162_rn(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]);
   }
 }
 
@@ -310,47 +525,115 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                   acc[i].w / l);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int G, int S, float scale, int causal, int bf16,
-           cudaStream_t stream) {
-  if (bf16) {
-    const unsigned blocks = static_cast<unsigned>(S / BQ) * BH;
-    flash_mma_kernel<D><<<blocks, MMA_THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), BH, S, G, scale, causal);
-  } else {
-    const unsigned blocks = static_cast<unsigned>(S / FQ) * BH;
-    flash_fma_kernel<D><<<blocks, FMA_THREADS, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), BH, S, G,
-        scale, causal);
+// ---- host side -------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, found through the runtime so that the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// A (rows, D) row-major bf16 tensor read in 64-column x 128-row boxes, each
+// landing in shared memory with the 128-byte swizzle.
+bool tile_map(CUtensorMap* map, const void* ptr, long long rows, int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {SUB, 128};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int BH, int G, int S, float scale, int causal,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const long long kv_rows = static_cast<long long>(BH / G) * S;
+  if (!tile_map(&tq, q, static_cast<long long>(BH) * S, D) ||
+      !tile_map(&tk, k, kv_rows, D) || !tile_map(&tv, v, kv_rows, D))
+    return static_cast<int>(cudaErrorNotSupported);
+  constexpr int smem = wgmma_smem<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>(S / TQ) * BH;
+  flash_wgmma_kernel<D><<<blocks, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), BH, S, G, scale * LOG2E,
+      causal);
+  return repro::launch_status();
+}
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, void* out, int BH,
+               int G, int S, float scale, int causal, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(S / FQ) * BH;
+  flash_fma_kernel<D><<<blocks, FMA_THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), BH, S, G, scale,
+      causal);
   return repro::launch_status();
 }
 
 }  // namespace
 
 // q, out: (BH, S, D); k, v: (BH / G, S, D), all contiguous, of one dtype:
-// bf16 (dtype 1) or float32 (dtype 0).  S a multiple of 64 (the wrapper
-// pads to 128), D one of 64, 80, 128.
+// bf16 (dtype 1; S a multiple of 128, D 64 or 128, 16-byte aligned) or
+// float32 (dtype 0; S a multiple of 64, D 64, 80 or 128).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH, int G,
                                       int S, int D, float scale, int causal,
                                       int dtype, void* stream) {
   if (BH == 0 || S == 0) return 0;
-  if (S % BQ || S % FQ || G < 1 || BH % G || dtype < 0 || dtype > 1)
+  if (G < 1 || BH % G || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (S % TQ) return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 64:
+        return launch_wgmma<64>(q, k, v, out, BH, G, S, scale, causal, s);
+      case 128:
+        return launch_wgmma<128>(q, k, v, out, BH, G, S, scale, causal, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (S % FQ) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, out, BH, G, S, scale, causal, dtype, s);
+      return launch_fma<64>(q, k, v, out, BH, G, S, scale, causal, s);
     case 80:
-      return launch<80>(q, k, v, out, BH, G, S, scale, causal, dtype, s);
+      return launch_fma<80>(q, k, v, out, BH, G, S, scale, causal, s);
     case 128:
-      return launch<128>(q, k, v, out, BH, G, S, scale, causal, dtype, s);
+      return launch_fma<128>(q, k, v, out, BH, G, S, scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

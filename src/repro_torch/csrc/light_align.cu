@@ -21,12 +21,6 @@ namespace {
 
 using repro::Scoring;
 
-// Base j of one row's (R + 2E)-base window.
-struct RowWindow {
-  const uint8_t* win;
-  __device__ __forceinline__ int operator()(int j) const { return win[j]; }
-};
-
 __global__ void light_align_kernel(const uint8_t* __restrict__ reads,
                                    const uint8_t* __restrict__ wins, int B,
                                    int R, int E, int sr, int sw, int paper,
@@ -47,7 +41,7 @@ __global__ void light_align_kernel(const uint8_t* __restrict__ reads,
   __syncthreads();
   if (static_cast<int>(threadIdx.x) >= rows) return;
   const long long b = b0 + threadIdx.x;
-  const RowWindow win{swin + threadIdx.x * sw};
+  const repro::RowWindow win{swin + threadIdx.x * sw};
   const repro::AlignOut a = repro::light_align_one(
       sread + threadIdx.x * sr, win, R, E, paper != 0, sc);
   out[b] = a.score;

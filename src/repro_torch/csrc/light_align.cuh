@@ -14,7 +14,8 @@
 // (argmax's first maximum).
 //
 // `Window` is how a window base is read: win(j) is base j of the window,
-// 0 <= j < R + 2E.  Needs R >= E.
+// 0 <= j < R + 2E (`RowWindow`: a row staged in shared memory, as both
+// kernels stage theirs).  Needs R >= E.
 #pragma once
 
 #include <climits>
@@ -22,6 +23,12 @@
 #include "common.cuh"
 
 namespace repro {
+
+// Base j of a window staged in a row of shared memory.
+struct RowWindow {
+  const uint8_t* win;
+  __device__ __forceinline__ int operator()(int j) const { return win[j]; }
+};
 
 struct AlignOut {
   int score, type, len, pos;

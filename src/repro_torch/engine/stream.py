@@ -81,11 +81,18 @@ def split_batch(item, n_arrays: int = 2):
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to the array leaves of a tuple/list/dict aux tree."""
+    """Apply ``fn`` to the array leaves of a tuple/list/dict aux tree, as
+    `jax.tree.map` does: each container keeps its type (a namedtuple is
+    rebuilt field by field) and ``None`` is an empty subtree, kept."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        mapped = [tree_map(fn, v) for v in tree]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*mapped)
+        return type(tree)(mapped)
     return fn(tree)
 
 

@@ -1,6 +1,8 @@
 """Shared prep for the window-gathering kernels (candidate_align and
 residual_dp): both read a contiguous window of a padded reference, so
-their starts are clamped by one shared rule per reference flavor."""
+their starts are clamped by one shared rule per reference flavor
+(`window_starts`; the candidate_align kernel applies it itself).  Also
+the staged row stride of the Light Alignment kernels."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -73,3 +75,10 @@ def clamp_window_starts(pos: torch.Tensor, valid: torch.Tensor, ref_len: int,
     """
     return torch.where(valid, pos, 0).clamp(lead - width,
                                             ref_len - 1 + lead).to(torch.int32)
+
+
+def staged_stride(n: int) -> int:
+    """Bytes of one row staged in shared memory by the Light Alignment
+    kernels: whole 4-byte words, an odd number of them (a warp's 32 rows
+    then fall in 32 banks)."""
+    return 4 * (((n + 3) // 4) | 1)

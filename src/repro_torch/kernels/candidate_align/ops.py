@@ -1,25 +1,25 @@
 """Public wrapper of the fused candidate light-alignment op (step 4).
 
-On CUDA tensors `candidate_pair_align` prepares the kernel's window
-coordinates (`kernels/_util.window_starts`: edge-padded uint8 bases, or
-back-padded packed words with a word/offset split), launches the
-`candidate_align` kernel — which never materializes the (B, C, R+2E)
-window tensor — and turns the winner's edit fields into CIGAR runs.  On
+On CUDA tensors `candidate_pair_align` launches the `candidate_align`
+kernel, which computes each window's coordinates itself (the rule of
+`kernels/_util.window_starts`: edge-padded uint8 bases, or back-padded
+packed words with a word/offset split), never materializes the (B, C,
+R+2E) window tensor, aligns only the valid candidates' mates (and a
+winner's invalid mates) and writes the winner's fields and CIGAR runs.  On
 CPU tensors (or with ``backend="torch"``) it runs the plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.light_align import cigar_ops
+from repro_torch.core.encoding import packed_gather_coords
 from repro_torch.core.scoring import Scoring
-from repro_torch.core.seedmap import INVALID_LOC
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
 from repro_torch.kernels._util import (
     KernelRef,
     kernel_reference,
-    window_starts,
+    staged_stride,
 )
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.candidate_align.ref import (
@@ -29,11 +29,33 @@ from repro_torch.kernels.candidate_align.ref import (
 
 CANDIDATE_ALIGN = _cuda.register(
     "candidate_align", "candidate_align_launch",
-    (PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR) + (INT,) * 11
-    + (PTR, PTR))
+    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 18 + (PTR,) * 5)
 
 # the reduction key (score1 + score2) * C - j stays inside int32
 MAX_CANDIDATES = 512
+MAX_READ = 1 << 14        # the kernel packs an edit's length and position
+THREADS = 128             # threads per block
+# The pair lane has ~2.03 live alignments per pair: 48 pairs fill ~3/4 of
+# the threads in one round, leaving room for pairs with more candidates.
+PAIRS_PER_BLOCK = 48
+MAX_SHARED = 100 * 1024   # bytes per block: two blocks fit an SM
+
+
+def launch_shape(R: int, W: int, C: int) -> tuple[int, int, int, int]:
+    """``(threads, pairs per block, sr, sw)`` of a launch: each thread's
+    read and window rows (strides sr, sw) and each pair's 8 C + 1 ints of
+    results and lists fit `MAX_SHARED`."""
+    sr, sw = staged_stride(R), staged_stride(W)
+    pair_bytes = 4 * (8 * C + 1)
+    threads = min(THREADS,
+                  (MAX_SHARED - 4 - pair_bytes) // (sr + sw) // 32 * 32)
+    ppb = 0 if threads <= 0 else min(
+        PAIRS_PER_BLOCK, (MAX_SHARED - 4 - threads * (sr + sw)) // pair_bytes)
+    if ppb <= 0:
+        raise ValueError(f"candidate_align: a warp's rows of {R} + {W} "
+                         f"bases and a pair of {C} candidates exceed "
+                         f"{MAX_SHARED}-byte shared memory")
+    return threads, ppb, sr, sw
 
 
 def candidate_pair_align(
@@ -50,11 +72,14 @@ def candidate_pair_align(
     packed_ref: bool = False,
     backend: str = "auto",
     kref: KernelRef | None = None,
+    count: torch.Tensor | None = None,
 ) -> PairAlignResult:
     """Best-candidate Light Alignment for a batch of read pairs.
 
     ``kref``: ``ref`` already padded for windows of at least R+2E bases
-    (`kernels/_util.kernel_reference`); built here when None."""
+    (`kernels/_util.kernel_reference`); built here when None.  ``count``:
+    a (1,) int32 tensor on the card that the kernel adds the number of
+    alignments it ran to (the plain version leaves it)."""
     backend = resolve_backend(backend, ref.device, family="candidate_align")
     if mode not in ("minsplit", "paper"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -69,40 +94,38 @@ def candidate_pair_align(
     W = R + 2 * E
     if threshold is None:
         threshold = scoring.default_threshold(R)
-    if C > MAX_CANDIDATES or R < E + 2:
+    if C > MAX_CANDIDATES or R < E + 2 or R >= MAX_READ:
         raise ValueError(f"candidate_align needs C <= {MAX_CANDIDATES} and "
-                         f"R >= E + 2 (C={C}, R={R}, E={E})")
+                         f"E + 2 <= R < {MAX_READ} (C={C}, R={R}, E={E})")
     _cuda.check(ref, "ref", torch.int32 if packed_ref else torch.uint8)
     _cuda.check(reads1, "reads1", torch.uint8)
     _cuda.check(reads2, "reads2", torch.uint8, (B, R))
     _cuda.check(pos1, "pos1", torch.int32, (B, C))
     _cuda.check(pos2, "pos2", torch.int32, (B, C))
+    if count is not None:
+        _cuda.check(count, "count", torch.int32, (1,))
+    threads, ppb, sr, sw = launch_shape(R, W, C)
 
-    valid1 = pos1 != INVALID_LOC
-    valid2 = pos2 != INVALID_LOC
     if kref is None:
         kref = kernel_reference(ref, W, packed_ref)
     _cuda.check(kref.data, "kref.data", ref.dtype)
-    sdma1, off1 = window_starts(ref, pos1, valid1, W, E, packed_ref, kref.pad)
-    sdma2, off2 = window_starts(ref, pos2, valid2, W, E, packed_ref, kref.pad)
-    v1 = valid1.to(torch.int32)
-    v2 = valid2.to(torch.int32)
-    out = torch.empty((12, B), dtype=torch.int32, device=ref.device)
+    if kref.pad < W:
+        raise ValueError(f"a reference padded for {kref.pad}-base windows "
+                         f"cannot serve {W}-base windows")
+    # the window coordinates of `window_starts`, computed in the kernel
+    win_hi = packed_gather_coords(ref.shape[0], W)[1] if packed_ref else 0
+    out = torch.empty((8, B), dtype=torch.int32, device=ref.device)
+    cigar1, cigar2 = (torch.empty((B, 3, 2), dtype=torch.int32,
+                                  device=ref.device) for _ in range(2))
     CANDIDATE_ALIGN(
         kref.data.data_ptr(), int(packed_ref), reads1.data_ptr(),
-        reads2.data_ptr(), sdma1.data_ptr(), sdma2.data_ptr(),
-        off1.data_ptr(), off2.data_ptr(), v1.data_ptr(), v2.data_ptr(),
+        reads2.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
         B, R, C, E, prescreen_top, int(mode == "paper"), scoring.match,
         scoring.mismatch, scoring.gap_open, scoring.gap_extend, threshold,
-        out.data_ptr(), _cuda.stream_of(ref))
-    (slot, rank, sc1, sc2, ok1, ok2,
-     et1, el1, ep1, et2, el2, ep2) = out.unbind(0)
-    idx = slot.to(torch.int64)[:, None]
+        threads, ppb, sr, sw, ref.shape[0], win_hi, kref.pad,
+        out.data_ptr(), cigar1.data_ptr(), cigar2.data_ptr(),
+        None if count is None else count.data_ptr(), _cuda.stream_of(ref))
+    slot, rank, sc1, sc2, ok1, ok2, bp1, bp2 = out.unbind(0)
     return PairAlignResult(
-        best=rank, slot=slot,
-        pos1=torch.gather(pos1, 1, idx)[:, 0],
-        pos2=torch.gather(pos2, 1, idx)[:, 0],
-        score1=sc1, score2=sc2, ok1=ok1.bool(), ok2=ok2.bool(),
-        cigar1=cigar_ops(et1, el1, ep1, R),
-        cigar2=cigar_ops(et2, el2, ep2, R),
-    )
+        best=rank, slot=slot, pos1=bp1, pos2=bp2, score1=sc1, score2=sc2,
+        ok1=ok1.bool(), ok2=ok2.bool(), cigar1=cigar1, cigar2=cigar2)

@@ -6,6 +6,9 @@ On CUDA tensors `flash_attention` launches the hand-written kernel
 repro's wrapper, it zero-pads S up to a multiple of `BLOCK` under causal
 masking (padded keys lie above every real row's diagonal, padded rows are
 cut off) and raises for an unaligned S without it, on both backends.
+The bf16 kernel takes head widths 64 and 128: a head of 80 is zero-padded
+to 128 under the original scale, which adds exact zeros to every score
+and gives zero output columns, cut off.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ FLASH_ATTENTION = _cuda.register(
     (PTR, PTR, PTR, PTR, INT, INT, INT, INT, F32, INT, INT, PTR))
 
 BLOCK = 128                       # repro's default block_q = block_k
-HEAD_DIMS = (64, 80, 128)         # the kernel's head widths
+HEAD_DIMS = (64, 80, 128)         # the kernel's head widths (bf16: 80 padded)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -60,11 +63,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _cuda.check(t, name, q.dtype)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if pad:
-        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+    d_pad = 128 - D if q.dtype == torch.bfloat16 and D == 80 else 0
+    if pad or d_pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_pad, 0, pad))
                    for t in (q, k, v))
     out = torch.empty_like(q)
     FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    BH, BH // k.shape[0], S + pad, D, sm_scale, int(causal),
-                    DTYPES[q.dtype], _cuda.stream_of(q))
-    return out[:, :S] if pad else out
+                    BH, BH // k.shape[0], S + pad, D + d_pad, sm_scale,
+                    int(causal), DTYPES[q.dtype], _cuda.stream_of(q))
+    return out[:, :S, :D] if pad or d_pad else out

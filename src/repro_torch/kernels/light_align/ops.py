@@ -15,6 +15,7 @@ from repro_torch.core.light_align import LightAlignResult
 from repro_torch.core.scoring import Scoring
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
+from repro_torch.kernels._util import staged_stride
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.light_align.ref import light_align_ref
 
@@ -23,12 +24,6 @@ LIGHT_ALIGN = _cuda.register(
 
 MAX_SHARED = 48 * 1024
 MAX_THREADS = 128
-
-
-def staged_stride(n: int) -> int:
-    """Bytes of one row staged in shared memory: whole 4-byte words, an
-    odd number of them (a warp's 32 rows then fall in 32 banks)."""
-    return 4 * (((n + 3) // 4) | 1)
 
 
 def _bases(x: torch.Tensor, name: str) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.seed_gather.ref import normalise_ids
 from repro_torch.models import layers as L
 from repro_torch.models.template import Leaf
 
@@ -97,9 +98,20 @@ def _dense_block(p, x, cfg, positions, kv_cache, cache_len, backend):
 
 
 # ========================================================== embedding ======
+def take_fill(table, ids):
+    """Rows ``table[ids]`` as ``jnp.take(table, ids, axis=0)`` gives them in
+    its default "fill" mode: an id in [-V, -1] wraps, and an id outside
+    [-V, V-1] gives a row of NaN.  The gather index is clamped first, so
+    nothing indexes out of range on either device."""
+    V = table.shape[0]
+    rows = table[normalise_ids(ids, V)]
+    inside = (ids >= -V) & (ids < V)
+    return torch.where(inside[..., None], rows, torch.nan)
+
+
 def _embed(params, cfg: ModelConfig, batch: dict):
     tokens = batch["tokens"]
-    x = params["embed"][tokens].to(cfg.act_dtype)
+    x = take_fill(params["embed"], tokens).to(cfg.act_dtype)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     return x, positions, torch.ones((B, S), dtype=torch.bool,

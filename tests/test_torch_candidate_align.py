@@ -91,6 +91,31 @@ def test_edge_starts_and_all_invalid_rows():
         assert (got.score1.numpy()[2:] == -(1 << 20)).all()
 
 
+@pytest.mark.parametrize("prescreen", [0, 2])
+@pytest.mark.parametrize("packed", [False, True])
+def test_half_valid_winners_report_the_window_at_0(packed, prescreen):
+    """Rows whose candidates each have one valid mate: the winner is the
+    slot whose valid mate scores best, and its invalid mate's edit fields
+    come from aligning the window at 0; beside them rows with one fully
+    valid slot among half-valid ones, which it must beat."""
+    ref, r1, r2, p1, p2 = _world(12, 4, seed=7)
+    rng = np.random.default_rng(8)
+    half = rng.random((12, 4)) < 0.5
+    p1 = np.where(half, p1, INVALID_LOC).astype(np.int32)
+    p2 = np.where(half, INVALID_LOC, p2).astype(np.int32)
+    for i in range(12):                        # every slot keeps one mate
+        for j in range(4):
+            if p1[i, j] == INVALID_LOC and p2[i, j] == INVALID_LOC:
+                p2[i, j] = int(rng.integers(0, L))
+    p1[1::3, 2] = 300                          # one fully valid slot
+    p2[1::3, 2] = 400
+    got = _check(ref, r1, r2, p1, p2, packed, prescreen_top=prescreen)
+    s1, s2 = got.score1.numpy(), got.score2.numpy()
+    one_valid = (s1 == -(1 << 20)) ^ (s2 == -(1 << 20))
+    assert one_valid[[i for i in range(12) if i % 3 != 1]].all()
+    assert not one_valid[1::3].any()
+
+
 @pytest.mark.parametrize("mode", ["minsplit", "paper"])
 def test_light_align_matches_repro(mode):
     """The plain Light Alignment itself (int32 prefix sums here, int16 in

@@ -132,6 +132,73 @@ def _cand_world(dev, b=40, c=8, L=6000, R=150, seed=0):
     return t(ref), t(reads1), t(reads2), t(pos1), t(pos2)
 
 
+def _cand_kind_world(dev, kind, seed=0):
+    """_cand_world's reference, reads and planted hits under one validity
+    pattern: every slot valid ("dense"), one valid slot per row, only
+    half-valid slots (one mate valid) beside rows with one fully valid
+    slot, every slot invalid, C = 1, a batch of 4,096 pairs whose blocks
+    each hold several rounds of items per thread, and starts at the
+    window clamps' edges (before the origin, past the end, near +-2^31,
+    where pos - E wraps as int32)."""
+    b, c = {"c1": (40, 1), "large": (4096, 8)}.get(kind, (160, 8))
+    ref, r1, r2, p1, p2 = _cand_world(dev, b=b, c=c, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    L = ref.shape[0]
+    full = torch.as_tensor(rng.integers(-30, L + 30, (2, b, c)),
+                           dtype=torch.int32, device=dev)
+    inv = torch.full_like(p1, INVALID_LOC)
+    if kind == "dense":
+        p1, p2 = (torch.where(p == INVALID_LOC, f, p)
+                  for p, f in zip((p1, p2), full))
+    elif kind == "one_valid":
+        keep = rng.integers(0, c, b)
+        keep[1::2] = np.arange(1, b, 2) % c          # the planted slot
+        keep = torch.as_tensor(keep, device=dev)
+        one = torch.arange(c, device=dev)[None] == keep[:, None]
+        p1 = torch.where(one, full[0], inv)
+        p2 = torch.where(one, full[1], inv)
+    elif kind == "half_valid":
+        mate1 = torch.as_tensor(rng.random((b, c)) < 0.5, device=dev)
+        p1 = torch.where(mate1, full[0], inv)
+        p2 = torch.where(mate1, inv, full[1])
+        p1[::4, 3] = full[0, ::4, 3]                 # one fully valid slot
+        p2[::4, 3] = full[1, ::4, 3]
+    elif kind == "all_invalid":
+        p1, p2 = inv, inv.clone()
+    elif kind == "edges":                            # the window clamps
+        edge = torch.tensor([-2**31, -2**31 + 3, -(150 + 16 + 9), -9, -3, 0,
+                             L - 158, L - 1, L + 7, 2**30, 2**31 - 2],
+                            dtype=torch.int32, device=dev)
+        p1 = edge[torch.arange(b * c, device=dev) % len(edge)].reshape(b, c)
+        p2 = p1.flip(1)
+    return ref, r1, r2, p1.contiguous(), p2.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["dense", "one_valid", "half_valid",
+                                  "all_invalid", "c1", "large", "edges"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("prescreen", [0, 4])
+def test_candidate_align_validity_patterns_match_plain(dev, kind, packed,
+                                                       prescreen):
+    ref, r1, r2, p1, p2 = _cand_kind_world(dev, kind, seed=prescreen + 3)
+    ref_in = pack_2bit(ref) if packed else ref
+    kw = dict(prescreen_top=prescreen, packed_ref=packed)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="cuda",
+                               count=count, **kw)
+    want = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="torch",
+                                **kw)
+    _same(got, want, f"{kind} packed={packed} P={prescreen}")
+    if prescreen == 0 or p1.shape[1] <= prescreen:
+        # every valid mate, both mates of a row without one, and the
+        # winner's invalid mates in a row with one
+        v1, v2 = p1 != INVALID_LOC, p2 != INVALID_LOC
+        has = (v1 | v2).any(1)
+        late = (got.pos1 == INVALID_LOC).int() + (got.pos2 == INVALID_LOC).int()
+        want_n = int(v1.sum() + v2.sum() + 2 * (~has).sum() + late[has].sum())
+        assert int(count) == want_n, kind
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("mode", ["minsplit", "paper"])
 @pytest.mark.parametrize("prescreen", [0, 1, 4, 8])
@@ -593,6 +660,14 @@ def test_building_blocks_refuse_cpu_tensors():
     (torch.bfloat16, 32, 4, 384, 64, True),
     (torch.float32, 32, 4, 384, 64, False),
     (torch.bfloat16, 3, 3, 128, 64, True),
+    (torch.bfloat16, 4, 1, 128, 128, True),      # one K/V tile
+    (torch.bfloat16, 4, 1, 128, 128, False),
+    (torch.bfloat16, 16, 8, 2176, 128, True),    # an odd tile count
+    (torch.bfloat16, 16, 1, 1024, 128, True),    # G 1 at D 128
+    (torch.bfloat16, 16, 1, 1024, 128, False),
+    (torch.bfloat16, 64, 8, 512, 128, False),    # G 8 at D 128
+    (torch.bfloat16, 32, 1, 512, 80, False),     # D 80 padded to 128
+    (torch.bfloat16, 32, 4, 640, 80, True),
 ])
 def test_flash_attention_matches_plain(dev, dtype, bh, g, s, d, causal):
     gen = torch.Generator(device=dev).manual_seed(bh * s + d)

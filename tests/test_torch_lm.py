@@ -369,3 +369,33 @@ def test_forward_hidden_and_logits_match_repro():
     jh, _ = jax_forward(jp, jc, {"tokens": jnp.asarray(toks)},
                         return_hidden=True)
     np.testing.assert_allclose(th.numpy(), _np(jh), atol=1e-5, rtol=1e-5)
+
+
+def test_out_of_range_token_ids_follow_jnp_take_fill():
+    """jnp.take's "fill" mode: an id in [-V, -1] wraps and an id outside
+    [-V, V-1] embeds as NaN, through prefill_step and decode_step."""
+    jc, tc = _configs("yi-6b", "float32")
+    jp, tp = _params(jc, tc)
+    V, S = jc.vocab_size, 12
+    toks = np.random.default_rng(23).integers(0, V, (3, S))
+    toks[0, -4:] = [-1, V, -V - 1, V + 3]       # NaN from position S-3 on
+    toks[1, -1] = -1                            # wraps to V - 1
+    jl, jcache = jax_prefill_step(jp, {"tokens": jnp.asarray(toks)}, jc,
+                                  S + 2, cache_dtype=jnp.float32)
+    tl, tcache = tmodel.prefill_step(tp, {"tokens": torch.as_tensor(toks)},
+                                     tc, S + 2, cache_dtype=torch.float32)
+    steps = (np.array([[-V], [V], [-2]]),       # wrap, NaN, wrap
+             np.array([[3], [-V - 1], [V - 1]]))
+    for step in range(len(steps) + 1):
+        want = _np(jl)
+        got = tl.numpy()
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        finite = ~np.isnan(want)
+        np.testing.assert_allclose(got[finite], want[finite], atol=1e-4)
+        if step == len(steps):
+            break
+        jl, jcache = jax_decode_step(jp, jcache, jnp.asarray(steps[step]),
+                                     jc)
+        tl, tcache = tmodel.decode_step(tp, tcache,
+                                        torch.as_tensor(steps[step]), tc)
+    assert np.isnan(_np(jl)[:2]).all() and np.isfinite(_np(jl)[2]).all()

@@ -4,7 +4,9 @@ residual_capacity_frac in {0, 0.25, 1}, the light-mode / prescreen /
 band variants, sessions built from repro's own index, and map_stream
 stage totals with a ragged tail."""
 import dataclasses
+from typing import NamedTuple
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,12 +19,14 @@ from repro.core import simulate_pairs as j_simulate_pairs
 from repro.core import to_padded as j_to_padded
 from repro.engine import ExecutionConfig as JExecutionConfig
 from repro.engine import Mapper as JMapper
+from repro.launch.serve import ACC_KEYS, _make_accuracy_reduce
 from repro_torch.convert import (
     config_from_fields,
     padded_from_numpy,
     seedmap_from_numpy,
 )
 from repro_torch.core.pipeline import PipelineConfig
+from repro_torch.core.seedmap import INVALID_LOC
 from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig
 from repro_torch.core.simulate import (
     ReadSimConfig,
@@ -149,3 +153,75 @@ def test_map_stream_reduce_fn_and_warmup(world):
     with pytest.raises(ValueError, match="exceeds"):
         mapper.map_stream(iter([(sim.reads1, sim.reads2)] * 2),
                           warmup_batch=(sim.reads1[:8], sim.reads2[:8]))
+
+
+class Truth(NamedTuple):
+    start1: np.ndarray
+    start2: np.ndarray
+
+
+def _hits(res, t1, t2, gap, xp):
+    """Mapped and correct mates of a batch, masked by ``n_valid``."""
+    v = res.n_valid
+    m1 = (res.pos1 != INVALID_LOC) & v
+    m2 = (res.pos2 != INVALID_LOC) & v
+    c1 = m1 & (xp.abs(res.pos1 - t1) <= gap)
+    c2 = m2 & (xp.abs(res.pos2 - t2) <= gap)
+    return {"mapped1": m1, "mapped2": m2, "correct1": c1, "correct2": c2,
+            "pair_mapped": m1 & m2, "pair_correct": c1 & c2}
+
+
+def _reduce_for(kind, gap, xp):
+    """A reduce_fn over one aux shape, in jnp (xp=jnp) or torch."""
+    def unpack(aux):
+        if kind == "namedtuple":
+            assert type(aux).__name__ == "Truth"
+            return aux.start1, aux.start2
+        if kind == "dict_with_none":
+            assert aux["note"] is None
+            return aux["true"]["start1"], aux["true"]["start2"]
+        return aux
+
+    def reduce(acc, res, aux):
+        new = _hits(res, *unpack(aux), gap, xp)
+        return {k: acc[k] + new[k].sum() for k in ACC_KEYS}
+    return reduce
+
+
+@pytest.mark.parametrize("kind", ["namedtuple", "dict_with_none",
+                                  "serve_tuple"])
+def test_map_stream_aux_trees_match_repro(world, kind):
+    """An aux tree is padded as jax.tree.map pads it: a NamedTuple keeps
+    its type, a None leaf stays None, and launch/serve.py's (t1, t2)
+    tuple reaches the reduce_fn as a tuple."""
+    ref, jsm, sim = world
+    tail = 13
+
+    def aux_of(sl):
+        t1, t2 = sim.true_start1[sl], sim.true_start2[sl]
+        if kind == "namedtuple":
+            return Truth(t1, t2)
+        if kind == "dict_with_none":
+            return {"true": {"start1": t1, "start2": t2}, "note": None}
+        return (t1, t2)
+
+    batches = [(sim.reads1[sl], sim.reads2[sl], aux_of(sl))
+               for sl in (slice(None), slice(tail), slice(5, None))]
+    jcfg = JPipelineConfig(packed_ref=True)
+    gap = jcfg.max_gap
+    jreduce = (_make_accuracy_reduce(gap) if kind == "serve_tuple"
+               else _reduce_for(kind, gap, jnp))
+    want = JMapper.from_index(
+        jsm, ref, jcfg, JExecutionConfig(backend="jnp", stream_batch=64)
+    ).map_stream(iter(batches), reduce_fn=jreduce,
+                 reduce_init={k: jnp.zeros((), jnp.int32) for k in ACC_KEYS})
+    mapper = Mapper.build(ref, SeedMapConfig(table_bits=BITS), _port_cfg(jcfg),
+                          dataclasses.replace(CPU, stream_batch=64))
+    got = mapper.map_stream(
+        iter(batches), reduce_fn=_reduce_for(kind, gap, torch),
+        reduce_init={k: torch.zeros((), dtype=torch.int64) for k in ACC_KEYS})
+    assert got.totals == want.totals
+    assert got.n_pairs == want.n_pairs == 64 + tail + 59
+    assert {k: int(v) for k, v in got.reduced.items()} == \
+        {k: int(v) for k, v in want.reduced.items()}
+    assert int(got.reduced["pair_correct"]) > 0
