@@ -47,8 +47,11 @@ Phases (any failure exits non-zero; nothing is caught):
      give it: the same 65,536-pair batch `map` got, the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
      size: the unpacked flavor, prescreen_top 4, a band >= W DP; the
-     batch with every candidate slot valid, timed apart, and the number of
-     alignments candidate_align ran against the bound's count), the
+     batch with every candidate slot valid, the residual buffer with every
+     slot needing DP and pair_frontend's rows with every slot valid
+     (h = M, merge_filter on the same rows gathered), each timed apart,
+     and the number of alignments candidate_align ran against the bound's
+     count), the
      long-read batch's diagonal rows and anchor windows (extra checks:
      synthetic vote rows, bands 16 and >= W), the sharded plan's
      gathered (B, S, K) locations of the pair batch (extra check: 4,096
@@ -869,6 +872,25 @@ def main() -> int:
             n_bytes=2 * B * S * 4 + 2 * B * M * 4 + B * (2 * C + 3) * 4,
             n_ops=fe_ops)
     record["frontend_hits_per_mate"] = float((h1 + h2).mean() / 2)
+    # every row slot valid (h = M: the sort and the probe at their
+    # largest), from a 2^24-row table of locations in [0, 2^16), so many
+    # starts lie within Δ of a partner; checked, and timed apart
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    dense_rows = torch.randint(0, 1 << 16, (1 << 24, K), generator=g,
+                               device=dev, dtype=torch.int32)
+    dense_ids = buckets & ((1 << 24) - 1)
+    compare("pair_frontend",
+            lambda: frontend_from_buckets(dense_rows, dense_ids, offs,
+                                          pipe.delta, C),
+            lambda: frontend_from_buckets_ref(dense_rows, dense_ids[:B],
+                                              dense_ids[B:], offs_t,
+                                              pipe.delta, C),
+            0, 0, timed=False, case="every slot valid")
+    kernels["pair_frontend"]["dense_ms"] = time_ms(
+        lambda: frontend_from_buckets(dense_rows, dense_ids, offs,
+                                      pipe.delta, C), 20)
+    print(f"[3] pair_frontend, every slot valid (h = {M} per mate): "
+          f"{kernels['pair_frontend']['dense_ms']:.4f} ms")
 
     # kernel 3: candidate alignment, both flavors, prescreen 0 and 4.  The
     # function aligns each valid candidate of both mates (one window at 0
@@ -960,6 +982,25 @@ def main() -> int:
             timed=packed and band == pipe.band(), iters=10)
     record["residual_buffer"] = {"rows": cap, "items": n_items}
     print(f"[3] residual buffer: {cap} rows, {n_items} live items")
+    # every slot of the buffer needs DP (2 cap items, nothing to skip):
+    # checked, and timed apart from the main path's case
+    all_need = torch.ones_like(buf.need1)
+    dense_dp = dp_in[:4] + (all_need, all_need, pipe.dp_pad)
+    compare("residual_dp",
+            lambda: residual_pair_dp(words, *dense_dp, band=pipe.band(),
+                                     scoring=pipe.scoring, packed_ref=True,
+                                     backend="cuda", kref=kref),
+            lambda: residual_pair_dp(words, *dense_dp, band=pipe.band(),
+                                     scoring=pipe.scoring, packed_ref=True,
+                                     backend="torch"),
+            0, 0, timed=False, case="every slot needed")
+    kernels["residual_dp"]["dense_ms"] = time_ms(
+        lambda: residual_pair_dp(words, *dense_dp, band=pipe.band(),
+                                 scoring=pipe.scoring, packed_ref=True,
+                                 backend="cuda", kref=kref), 10)
+    print(f"[3] residual_dp, every slot needed ({2 * cap} items): "
+          f"{kernels['residual_dp']['dense_ms']:.4f} ms")
+    del dense_dp, all_need
 
     # kernel 5: location vote over the long-read batch's diagonal rows (the
     # function's own work: a sort of each row, ~2 M log2 M), then
@@ -1061,6 +1102,14 @@ def main() -> int:
                                           C),
             lambda: merge_filter_ref(syn[0], syn[1], offs_t, pipe.delta, C),
             0, 0, timed=False)
+    dense_locs = dense_rows[dense_ids.long()]
+    compare("merge_filter",
+            lambda: frontend_merge_filter(dense_locs[:B], dense_locs[B:],
+                                          offs, pipe.delta, C),
+            lambda: merge_filter_ref(dense_locs[:B], dense_locs[B:], offs_t,
+                                     pipe.delta, C),
+            0, 0, timed=False, case="every slot valid")
+    del dense_rows, dense_locs
 
     # kernel 8: light_align of phase 2d's mates (the function's own work:
     # (2E+1) shifted passes of ~6 integer operations per base, as

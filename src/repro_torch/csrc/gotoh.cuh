@@ -1,22 +1,41 @@
-// The one semiglobal Gotoh recurrence of the CUDA kernels, shared by
+// The semiglobal Gotoh recurrence of the CUDA kernels, shared by
 // residual_dp.cu and banded_sw.cu as repro's banded_sw/kernel.py ::
-// dp_block is shared by residual_dp_pallas and banded_sw_pallas.
+// dp_block is shared by residual_dp_pallas and banded_sw_pallas.  Two
+// recurrences compute the same cells:
 //
-// One thread aligns one (R,) read against one (W,) reference window:
-// over the 2*band+1 frame around the window's centre diagonal c =
-// (W - R) / 2 (frame slot k of row i is column i + c - band + k; cells
-// outside [0, W] are NEG), or over all W+1 columns when band < 0.  Score
-// is the max of the last row, ref_end the first column that reaches it.
-// The horizontal gap is the reference's running max of h_tmp + ext*k
-// taken sequentially along the row (the TPU kernel's Hillis-Steele prefix
-// max computes the same maximum), so every cell equals the plain
-// version's, dead cells included.  The thread's H and E rows live in
-// shared memory at H[k * stride] and H[(cols + k) * stride], so a block's
-// threads sit column-major side by side (conflict-free).
+// gotoh_dp (banded_sw.cu): one thread aligns one (R,) read against one
+// (W,) reference window, over the 2*band+1 frame around the window's
+// centre diagonal c = (W - R) / 2 (frame slot k of row i is column
+// i + c - band + k; cells outside [0, W] are NEG), or over all W+1
+// columns when band < 0.  Score is the max of the last row, ref_end the
+// first column that reaches it.  The horizontal gap is the reference's
+// running max of h_tmp + ext*k taken sequentially along the row.  The
+// thread's H and E rows live in shared memory at H[k * stride] and
+// H[(cols + k) * stride], so a block's threads sit column-major side by
+// side (conflict-free).  `Window` is how a window base is read: win(j) is
+// base j of the window, 0 <= j < W.
 //
-// `Window` is how a window base is read: win(j) is base j of the window,
-// 0 <= j < W.
+// gotoh_dp_warp (residual_dp.cu): the 32 lanes of a warp align one read.
+// Lane l owns the CPL contiguous frame slots l*CPL .. l*CPL+CPL-1 (slots
+// past the frame are padding, always dead) and keeps their H and E in
+// registers.  The vertical neighbour of the banded frame is slot k+1 of
+// the previous row, one __shfl_down_sync at the lane's last slot; the
+// full DP's diagonal is column j-1, one __shfl_up_sync at the lane's
+// first.  The horizontal gap's running max is an in-lane running max, an
+// inclusive warp max-scan of the lane totals (5 shuffles) and a shift to
+// the exclusive prefix: max is exact on int32, so every cell equals the
+// sequential version's (repro's TPU kernel computes the same maximum
+// with a Hillis-Steele scan), dead cells and the column-0 rule included.
+// Only the first and last rows of a banded frame can hold column 0 or
+// columns past W; the rows between skip those tests, and slots past the
+// frame then hold values nothing reads (the frame's last slot takes NEG
+// from the row above in their place).
+// The caller stages the read and the window in the warp's shared memory,
+// the window between pads (gotoh_warp_stage) so that no read of it needs
+// a bounds check.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,6 +115,149 @@ __device__ DPOut gotoh_dp(const uint8_t* read, int R, int W, int band,
     }
   }
   return DPOut{best, full ? arg : R + c - band + arg};
+}
+
+// Floor of (W - R) / 2: core/dp_fallback.py::band_center.
+__host__ __device__ inline int band_centre(int R, int W) {
+  const int d = W - R;
+  return d >= 0 ? d / 2 : -((1 - d) / 2);
+}
+
+// Shared-memory layout of one warp's staged window: W bases at
+// [left, left + W) of `bytes` (a multiple of 4), with pads on both sides
+// wide enough that gotoh_dp_warp reads window index i + c - band + k - 1
+// (FULL: k - 1) for every row i and slot k < 32*cpl without a bounds
+// check.  Pad bytes only meet cells outside [1, W], whose substitution
+// score is never used (they are NEG, or column 0's fixed value).
+struct WarpStage {
+  int left, bytes;
+};
+
+__host__ __device__ inline WarpStage gotoh_warp_stage(int R, int W, int band,
+                                                      int cpl) {
+  const bool full = band < 0;
+  const int c = band_centre(R, W);
+  const int lo = full ? -1 : c - band;              // least index read
+  const int hi = full ? 32 * cpl - 2 : R + c - band + 32 * cpl - 2;
+  const int left = lo < 0 ? -lo : 0;
+  const int end = left + (hi + 1 > W ? hi + 1 : W);
+  return WarpStage{left, (end + 3) & ~3};
+}
+
+// One warp aligns `read` (R bases) against the window staged at `win`
+// (W bases, padded as gotoh_warp_stage says), both in shared memory;
+// every lane returns the result.  FULL: all W+1 columns (cols = W+1);
+// otherwise the 2*band+1 frame.  CPL * 32 >= cols.
+template <int CPL, bool FULL>
+__device__ DPOut gotoh_dp_warp(const uint8_t* read, int R,
+                               const uint8_t* win, int W, int band,
+                               Scoring sc) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int cols = FULL ? W + 1 : 2 * band + 1;
+  const int op = sc.gap_open, ext = sc.gap_extend, first = op + ext;
+  const int c = band_centre(R, W);
+  const int k0 = lane * CPL;                    // this lane's first slot
+  // column of slot t in row i: i + 1 + j_off + t (FULL: k0 + t)
+  const int j_off = FULL ? k0 : c - band + k0;
+  int H[CPL], E[CPL];
+  bool frame[CPL], up_live[CPL];   // slot k, and slot k+1, in the frame
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    const int k = k0 + t;
+    const int j0 = FULL ? k : c - band + k;
+    frame[t] = k < cols;
+    up_live[t] = k + 1 < cols;
+    H[t] = (frame[t] && j0 >= 0 && j0 <= W) ? 0 : NEG;
+    E[t] = NEG;
+  }
+  // One row.  CHECK: the row may hold column 0 or columns past W (the
+  // first and last rows of a banded frame, every row of the full DP);
+  // otherwise every frame slot is a column in [1, W] and needs no test.
+  // Slots past the frame are not kept dead: the frame's last slot takes
+  // NEG from the row above in their place, and nothing else reads them.
+  auto row = [&](int i, auto check) {
+    constexpr bool CHECK = decltype(check)::value;
+    const int rb = read[i];
+    const int h0 = -(op + ext * (i + 1));        // column 0 of this row
+    // the row above's neighbour across the lane edge
+    const int h_edge = FULL ? __shfl_up_sync(ALL, H[CPL - 1], 1)
+                            : __shfl_down_sync(ALL, H[0], 1);
+    [[maybe_unused]] const int e_edge =
+        FULL ? NEG : __shfl_down_sync(ALL, E[0], 1);
+    const int jr = FULL ? j_off : i + 1 + j_off;   // column of slot 0
+    const uint8_t* wrow = win + jr - 1;
+    int ht[CPL];
+    bool valid[CPL];
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int j = jr + t;
+      const int sub = rb == wrow[t] ? sc.match : -sc.mismatch;
+      int v, e;
+      if constexpr (FULL) {
+        e = max(H[t] - first, E[t] - ext);
+        const int diag = t > 0 ? H[t - 1] : h_edge;
+        v = j == 0 ? h0 : max(diag + sub, e);
+      } else {
+        int h_up = t + 1 < CPL ? H[t + 1] : h_edge;
+        int e_up = t + 1 < CPL ? E[t + 1] : e_edge;
+        if (!up_live[t]) h_up = e_up = NEG;
+        e = max(h_up - first, e_up - ext);
+        v = max(H[t] + sub, e);
+        if (CHECK && j == 0) v = h0;
+      }
+      valid[t] = !CHECK || (frame[t] && static_cast<unsigned>(j) <=
+                                           static_cast<unsigned>(W));
+      ht[t] = valid[t] ? v : NEG;
+      E[t] = e;
+    }
+    int run[CPL];
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int g = ht[t] + ext * (k0 + t);
+      if (t == 0) run[t] = g;
+      else run[t] = max(run[t - 1], g);
+    }
+    int scan = run[CPL - 1];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1)
+      scan = max(scan, __shfl_up_sync(ALL, scan, d));
+    const int below = __shfl_up_sync(ALL, scan, 1);
+    const int before = lane == 0 ? INT32_MIN : below;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int pre = t == 0 ? (lane == 0 ? NEG : below)
+                             : max(before, run[t - 1]);
+      const int f = pre - op - ext * (k0 + t);
+      H[t] = valid[t] ? max(ht[t], f) : NEG;
+    }
+  };
+  // banded rows [i_head, i_tail) hold only columns in [1, W]
+  const int i_head = FULL ? R : min(R, max(0, band - c));
+  const int i_tail = FULL ? R : max(i_head, min(R, W - c - band));
+  int i = 0;
+  for (; i < i_head; ++i) row(i, std::true_type{});
+  for (; i < i_tail; ++i) row(i, std::false_type{});
+  for (; i < R; ++i) row(i, std::true_type{});
+  // the first slot of the last row that reaches its maximum
+  int best = INT32_MIN, arg = INT32_MAX;
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    if (frame[t] && H[t] > best) {
+      best = H[t];
+      arg = k0 + t;
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int ob = __shfl_xor_sync(ALL, best, d);
+    const int oa = __shfl_xor_sync(ALL, arg, d);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  return DPOut{best, FULL ? arg : R + c - band + arg};
 }
 
 // Shared memory a block of `threads` DP threads needs.

@@ -1,8 +1,9 @@
 """Public wrapper of the banded Gotoh DP (the long-read anchor DP).
 
 On CUDA tensors `banded_sw` launches the `banded_sw` kernel, which runs
-the recurrence `residual_dp` runs (csrc/gotoh.cuh) on gathered windows;
-on CPU tensors (or with ``backend="torch"``) it runs the plain version.
+csrc/gotoh.cuh's one-thread recurrence on gathered windows (`residual_dp`
+runs the warp recurrence of the same file); on CPU tensors (or with
+``backend="torch"``) it runs the plain version.
 """
 from __future__ import annotations
 
@@ -14,10 +15,20 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.banded_sw.ref import gotoh_banded_ref
-from repro_torch.kernels.residual_dp.ops import dp_threads
 
 BANDED_SW = _cuda.register(
     "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 9 + (PTR,) * 3)
+
+MAX_SHARED = 48 * 1024
+
+
+def dp_threads(cols: int) -> int:
+    """Threads per block so each thread's H and E rows (2*cols int32) fit
+    48 KB of shared memory; whole warps where possible."""
+    t = min(128, MAX_SHARED // (8 * cols))
+    if t < 1:
+        raise ValueError(f"a {cols}-column DP row exceeds shared memory")
+    return t - t % 32 if t >= 32 else t
 
 
 def banded_sw(read: torch.Tensor, win: torch.Tensor,

@@ -6,8 +6,10 @@ the padded rows, merges, filters and compacts, so the (B, S, K) location
 tensor and the sorted start lists never reach device memory.
 `frontend_merge_filter` is the post-query entry, for (B, S, K) locations
 already gathered (the sharded-index serve step): one `merge_filter`
-kernel.  On CPU tensors (or with ``backend="torch"``) each runs its plain
-version in `ref.py`.
+kernel.  Both kernels run csrc/merge_filter.cuh's block, one warp per
+pair, which sorts only each mate's valid starts and probes only mate 1's.
+On CPU tensors (or with ``backend="torch"``) each runs its plain version
+in `ref.py`.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ MAX_SEEDS = 16
 
 
 def _check_merge_smem(S: int, K: int) -> None:
-    """The shared merge block holds 6*S*K + 3 ints (merge_filter.cuh)."""
-    if (6 * S * K + 3) * 4 > MAX_SHARED:
+    """The merge block's warp holds 4*S*K ints of one pair in shared
+    memory (merge_filter.cuh); a block has at least one warp."""
+    if 4 * S * K * 4 > MAX_SHARED:
         raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
 
 
@@ -83,6 +86,8 @@ def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
     C = max_candidates
     _cuda.check(rows, "rows", torch.int32)
     _cuda.check(buckets, "buckets", torch.int32, (2 * B, len(seed_offs)))
+    if S > MAX_SEEDS:
+        raise ValueError(f"pair_frontend supports S <= {MAX_SEEDS} seeds")
     _check_merge_smem(S, K)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, rows.device)
     PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,

@@ -1,27 +1,22 @@
 """Public wrapper of the fused residual-DP fallback op (step 5).
 
-On CUDA tensors the ``2*N`` (row, mate) slots are stably partitioned so
-the items whose ``need`` mask is set come first; the `residual_dp`
-kernel reads the live item count from device memory, runs the banded DP
-for those items only, and the results scatter back to per-mate (N,)
-arrays through the inverse permutation.  Mates whose Light Alignment
-succeeded come back as ``NEG`` / 0.  No host sync decides the launch.  On
-CPU tensors (or with ``backend="torch"``) it runs the plain version.
+On CUDA tensors one `residual_dp` launch covers the ``2*N`` (row, mate)
+slots: one warp per slot, so a slot whose ``need`` flag is clear costs a
+warp that writes ``NEG`` / 0 and exits, and no compaction, gather or
+scatter runs around the kernel.  The kernel computes each window's start
+itself (`kernels/_util.window_starts`'s clamp).  No host sync decides the
+launch.  On CPU tensors (or with ``backend="torch"``) it runs the plain
+version.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dp_fallback import NEG
+from repro_torch.core.encoding import packed_gather_coords
 from repro_torch.core.scoring import Scoring
-from repro_torch.core.seedmap import INVALID_LOC
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
-from repro_torch.kernels._util import (
-    KernelRef,
-    kernel_reference,
-    window_starts,
-)
+from repro_torch.kernels._util import KernelRef, kernel_reference
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.residual_dp.ref import (
     ResidualDPResult,
@@ -30,18 +25,20 @@ from repro_torch.kernels.residual_dp.ref import (
 
 RESIDUAL_DP = _cuda.register(
     "residual_dp", "residual_dp_launch",
-    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 9 + (PTR, PTR, PTR, PTR))
+    (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR,) * 3)
 
-MAX_SHARED = 48 * 1024
+#: frame slots per lane the kernel is built for (csrc/residual_dp.cu)
+LANE_SLOTS = (1, 2, 4, 6, 8, 16, 32)
 
 
-def dp_threads(cols: int) -> int:
-    """Threads per block so each thread's H and E rows (2*cols int32) fit
-    48 KB of shared memory; whole warps where possible."""
-    t = min(128, MAX_SHARED // (8 * cols))
-    if t < 1:
-        raise ValueError(f"a {cols}-column DP row exceeds shared memory")
-    return t - t % 32 if t >= 32 else t
+def lane_slots(cols: int) -> int:
+    """Frame slots each of a warp's 32 lanes owns for a ``cols``-column
+    DP row: the least built value with 32 of them covering the row."""
+    for cpl in LANE_SLOTS:
+        if 32 * cpl >= cols:
+            return cpl
+    raise ValueError(f"a {cols}-column DP row exceeds the warp kernel's "
+                     f"{32 * LANE_SLOTS[-1]} columns")
 
 
 def residual_pair_dp(
@@ -77,41 +74,30 @@ def residual_pair_dp(
     _cuda.check(reads2, "reads2", torch.uint8, (N, R))
     _cuda.check(pos1, "pos1", torch.int32, (N,))
     _cuda.check(pos2, "pos2", torch.int32, (N,))
+    need1 = need1.contiguous()
+    need2 = need2.contiguous()
+    _cuda.check(need1, "need1", torch.bool, (N,))
+    _cuda.check(need2, "need2", torch.bool, (N,))
+    full = band is None or band >= W
+    cpl = lane_slots(W + 1 if full else 2 * band + 1)
     if kref is None:
         kref = kernel_reference(ref, W, packed_ref)
     _cuda.check(kref.data, "kref.data", ref.dtype)
-    sd1, off1 = window_starts(ref, pos1, pos1 != INVALID_LOC, W, dp_pad,
-                              packed_ref, kref.pad)
-    sd2, off2 = window_starts(ref, pos2, pos2 != INVALID_LOC, W, dp_pad,
-                              packed_ref, kref.pad)
-
-    # ---- single-mate-aware item compaction ------------------------------
-    # Slot 2*r + m is (row r, mate m); a stable partition puts the
-    # failed-mate items first, the kernel skips everything past n_items.
-    need = torch.stack([need1, need2], -1).reshape(2 * N)
-    order = torch.argsort((~need).to(torch.uint8), stable=True)
-    n_items = need.sum().to(torch.int32).reshape(1)
-    item_reads = torch.stack([reads1, reads2], 1).reshape(2 * N, R)[order]
-    sd = torch.stack([sd1, sd2], -1).reshape(2 * N)[order]
-    off = torch.stack([off1, off2], -1).reshape(2 * N)[order]
-
-    full = band is None or band >= W
-    cols = W + 1 if full else 2 * band + 1
-    score_c, end_c, did = (torch.empty(2 * N, dtype=torch.int32,
-                                       device=ref.device) for _ in range(3))
+    if kref.pad < W:
+        raise ValueError(f"a reference padded for {kref.pad}-base windows "
+                         f"cannot serve {W}-base windows")
+    # the window coordinates of `window_starts`, computed in the kernel
+    win_hi = packed_gather_coords(ref.shape[0], W)[1] if packed_ref else 0
+    score, end = (torch.empty((N, 2), dtype=torch.int32, device=ref.device)
+                  for _ in range(2))
     RESIDUAL_DP(
-        kref.data.data_ptr(), int(packed_ref), sd.data_ptr(), off.data_ptr(),
-        n_items.data_ptr(), item_reads.data_ptr(), 2 * N, R, W,
-        -1 if full else band, dp_threads(cols), scoring.match,
+        kref.data.data_ptr(), int(packed_ref), reads1.data_ptr(),
+        reads2.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
+        need1.data_ptr(), need2.data_ptr(), N, R, W, -1 if full else band,
+        dp_pad, ref.shape[0], win_hi, kref.pad, cpl, scoring.match,
         scoring.mismatch, scoring.gap_open, scoring.gap_extend,
-        score_c.data_ptr(), end_c.data_ptr(), did.data_ptr(),
-        _cuda.stream_of(ref))
-
-    # ---- scatter back through the inverse permutation -------------------
-    inv = torch.argsort(order)
-    score = torch.where(need, score_c[inv], NEG).reshape(N, 2)
-    end = torch.where(need, end_c[inv], 0).reshape(N, 2)
+        score.data_ptr(), end.data_ptr(), _cuda.stream_of(ref))
     return ResidualDPResult(
         score1=score[:, 0], ref_end1=end[:, 0],
         score2=score[:, 1], ref_end2=end[:, 1],
-        dp_lanes=did.sum())
+        dp_lanes=need1.sum() + need2.sum())

@@ -214,7 +214,7 @@ def test_candidate_align_matches_plain(dev, packed, mode, prescreen):
 
 
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("band", [2, 24, None])
+@pytest.mark.parametrize("band", [0, 1, 2, 24, 181, None])
 def test_residual_dp_matches_plain(dev, packed, band):
     rng = np.random.default_rng(band or 99)
     L, R, n, dp_pad = 5000, 150, 33, 16
@@ -249,6 +249,80 @@ def test_residual_dp_zero_items(dev):
                            backend="cuda")
     assert int(got.dp_lanes) == 0
     assert bool((got.score1 == -(1 << 20)).all())
+
+
+def _dp_world(dev, n, R, dp_pad, need, seed):
+    """A reference, reads (every other one a noisy copy of its window),
+    window anchors on both reference edges and past them, and one of the
+    need patterns: "all", "none", "one" (a single slot), "random"."""
+    rng = np.random.default_rng(seed)
+    L = 4000
+    ref = rng.integers(0, 4, L, np.uint8)
+    pos1 = rng.integers(0, L - R, n).astype(np.int32)
+    edges = [-3, -(R + 2 * dp_pad + 5), 0, L - 1, L + 7, INVALID_LOC,
+             -2**31, 2**31 - 2]
+    pos1[:min(n, len(edges))] = edges[:n]
+    pos2 = pos1[::-1].copy()
+    reads1 = rng.integers(0, 4, (n, R), np.uint8)
+    reads2 = rng.integers(0, 4, (n, R), np.uint8)
+    for i in range(len(edges), n, 2):
+        reads1[i] = ref[pos1[i]:pos1[i] + R]
+        reads1[i, R // 3:R // 3 + 3] = 0
+        if 0 <= pos2[i] < L - R:
+            reads2[i, :R // 2] = ref[pos2[i]:pos2[i] + R // 2]
+    need1, need2 = {
+        "all": (np.ones(n, bool), np.ones(n, bool)),
+        "none": (np.zeros(n, bool), np.zeros(n, bool)),
+        "one": (np.arange(n) == n // 2, np.zeros(n, bool)),
+        "random": (rng.random(n) < 0.5, rng.random(n) < 0.5),
+    }[need]
+    t = (lambda x: torch.as_tensor(x, device=dev))
+    return (t(ref),) + tuple(t(x) for x in (reads1, reads2, pos1, pos2,
+                                             need1, need2))
+
+
+@pytest.mark.parametrize("need", ["all", "none", "one", "random"])
+@pytest.mark.parametrize("n,R,dp_pad,band", [
+    (33, 150, 16, 24), (5, 45, 16, 24), (3, 150, 16, None),
+    (97, 100, 8, 2), (1, 37, 5, 0),
+])
+@pytest.mark.parametrize("packed", [False, True])
+def test_residual_dp_need_patterns_match_plain(dev, need, n, R, dp_pad,
+                                               band, packed):
+    """Every slot needed, none, one; slot counts 2n that are not a
+    multiple of the block's 8 warps; R not a multiple of 32; the full DP
+    (CPL 6 at W 182); windows on both reference edges."""
+    ref, r1, r2, p1, p2, n1, n2 = _dp_world(dev, n, R, dp_pad, need,
+                                            seed=n + R)
+    ref_in = pack_2bit(ref) if packed else ref
+    args = (ref_in, r1, r2, p1, p2, n1, n2, dp_pad)
+    got = residual_pair_dp(*args, band=band, packed_ref=packed,
+                           backend="cuda")
+    want = residual_pair_dp(*args, band=band, packed_ref=packed,
+                            backend="torch")
+    _same(got, want, f"need={need} n={n} R={R} band={band}")
+    assert int(got.dp_lanes) == int(n1.sum() + n2.sum())
+
+
+def test_residual_dp_other_scoring_matches_plain(dev):
+    ref, r1, r2, p1, p2, n1, n2 = _dp_world(dev, 40, 150, 16, "random", 5)
+    sc = Scoring(match=1, mismatch=4, gap_open=6, gap_extend=1)
+    for band in (10, None):
+        got = residual_pair_dp(ref, r1, r2, p1, p2, n1, n2, 16, band=band,
+                               scoring=sc, backend="cuda")
+        want = residual_pair_dp(ref, r1, r2, p1, p2, n1, n2, 16, band=band,
+                                scoring=sc, backend="torch")
+        _same(got, want, f"band={band}")
+
+
+def test_residual_dp_refuses_rows_past_the_warp_kernel(dev):
+    ref = torch.zeros(3000, dtype=torch.uint8, device=dev)
+    reads = torch.zeros((2, 1000), dtype=torch.uint8, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    need = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="columns"):
+        residual_pair_dp(ref, reads, reads, pos, pos, need, need, 16,
+                         backend="cuda")
 
 
 def test_cuda_backend_rejects_cpu_tensors():
@@ -420,10 +494,67 @@ def test_merge_filter_equals_pair_frontend_on_gathered_rows(dev):
 
 
 def test_merge_filter_rejects_rows_past_shared_memory(dev):
-    l1 = torch.zeros((2, 16, 128), dtype=torch.int32, device=dev)
+    """One warp holds 4*S*K ints of shared memory: S*K = 4,096 is past
+    48 KB."""
+    l1 = torch.zeros((2, 16, 256), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         frontend_merge_filter(l1, l1, tuple(range(16)), 30, 4,
                               backend="cuda")
+
+
+def test_merge_filter_takes_rows_the_block_design_refused(dev):
+    """S*K = 2,048 (8 KB of starts per mate) runs with one warp a block."""
+    l1, l2 = _merge_locs(dev, 9, 16, 128, seed=3)
+    offs = tuple(range(0, 160, 10))
+    got = frontend_merge_filter(l1, l2, offs, 30, 4, backend="cuda")
+    want = frontend_merge_filter(l1, l2, offs, 30, 4, backend="torch")
+    _same(got, want, "S*K = 2048")
+
+
+def _edge_locs(dev, b, S, K, seed):
+    """(2, b, S, K) locations: random rows beside dense rows (every slot
+    valid), all-invalid rows and mates, duplicate-heavy rows with many
+    survivors, locations near +-2^31 (a start that wraps to INT_MAX, Δ
+    targets that wrap) and starts near 0."""
+    rng = np.random.default_rng(seed)
+    M = S * K
+    x = rng.integers(-40, 300, (2, b, M)).astype(np.int64)
+    x[rng.random(x.shape) < 0.4] = INVALID_LOC
+    x[:, 1::8] = rng.integers(0, 2000, x[:, 1::8].shape)     # dense
+    x[:, 2] = INVALID_LOC                                    # no hits
+    x[1, 3] = INVALID_LOC                                    # mate 2 empty
+    x[:, 4::8] = np.arange(M) % 5 * 3                        # duplicates
+    x[:, 5] = 7                                              # all equal
+    x[:, 6] = rng.integers(-2**31, -2**31 + 300, (2, M))     # near -2^31
+    x[:, 7] = rng.integers(2**31 - 300, 2**31 - 1, (2, M))   # near +2^31
+    x[0, 6, 0] = -2**31 + 40 - 1    # seed 0 at offset 40: start INT_MAX
+    return torch.as_tensor(x.astype(np.int32).reshape(2, b, S, K),
+                           device=dev)
+
+
+@pytest.mark.parametrize("s,k,delta,c", [
+    (3, 32, 500, 8), (3, 4, 60, 1), (2, 8, 0, 4), (3, 32, 0, 1),
+    (3, 24, 50, 40), (1, 4, 30, 8), (3, 32, 50, 1),
+])
+def test_merge_block_edge_rows_match_plain(dev, s, k, delta, c):
+    """Both launch sites of merge_filter.cuh on the same edge rows: dense
+    rows (h = M), more than 32 kept candidates with C = 1 and 40, K 4, 8,
+    24 and 32 (M up to 96), Δ 0, wrapped starts and targets; 37 pairs, not
+    a multiple of the block's 8 warps."""
+    B = 37
+    x = _edge_locs(dev, B, s, k, seed=s * k + delta + c)
+    offs = (40, 80, 120)[:s]
+    got = frontend_merge_filter(x[0], x[1], offs, delta, c, backend="cuda")
+    want = frontend_merge_filter(x[0], x[1], offs, delta, c,
+                                 backend="torch")
+    _same(got, want, f"merge_filter S={s} K={k} delta={delta} C={c}")
+    rows = x.reshape(2 * B * s, k)                  # one row per seed
+    buckets = torch.arange(2 * B * s, dtype=torch.int32,
+                           device=dev).reshape(2 * B, s)
+    fe = frontend_from_buckets(rows, buckets, offs, delta, c)
+    _same(fe, want, f"pair_frontend S={s} K={k} delta={delta} C={c}")
+    if c == 1 and delta == 60:
+        assert int(got.n[4]) == 1 and int(got.n_hits1[1]) == s * k
 
 
 @pytest.fixture(scope="module")

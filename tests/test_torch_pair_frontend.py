@@ -142,3 +142,88 @@ def test_staged_csr_path_matches_repro(K, delta, c):
     np.testing.assert_array_equal(
         query.padded_rows_device(sm, K).numpy(),
         np.asarray(jquery.padded_rows_device(jsm, K)))
+
+
+def _wrap32(x):
+    return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31).astype(np.int64)
+
+
+def _valid_only_model(l1, l2, offs, K, delta, C):
+    """numpy model of csrc/merge_filter.cuh's warp block: compact each
+    mate's starts other than INVALID_LOC in element order, sort only
+    those h (the rest of the reference's sorted row is INVALID_LOC),
+    and probe only i < h1 (lo by binary search over h2, occ over the
+    sorted prefix, the partner INVALID_LOC past h2)."""
+    B, M = l1.shape
+    off = np.repeat(np.asarray(offs, np.int64), K)
+    pos1 = np.full((B, C), INVALID_LOC, np.int64)
+    pos2 = np.full((B, C), INVALID_LOC, np.int64)
+    n = np.zeros(B, np.int64)
+    hits = np.zeros((2, B), np.int64)
+    for b in range(B):
+        s = []
+        for m, locs in enumerate((l1[b], l2[b])):
+            hit = locs != INVALID_LOC
+            st = np.where(hit, _wrap32(locs.astype(np.int64) - off),
+                          INVALID_LOC)
+            hits[m, b] = hit.sum()
+            s.append(np.sort(st[st != INVALID_LOC]))
+        s1, s2 = s
+        h1, h2 = len(s1), len(s2)
+        kept, p2 = 0, []
+        for i in range(h1):
+            v = s1[i]
+            lo = np.searchsorted(s2, _wrap32(v - delta), side="left")
+            occ = i - np.searchsorted(s1[:i], v, side="left")
+            idx = min(max(lo + occ, 0), M - 1)
+            q = s2[idx] if idx < h2 else INVALID_LOC
+            p2.append(q)
+            d = _wrap32(q - v)
+            within = q != INVALID_LOC and _wrap32(abs(d)) <= delta
+            if within and (i == 0 or s1[i - 1] != v or p2[i - 1] != q):
+                if kept < C:
+                    pos1[b, kept], pos2[b, kept] = v, q
+                kept += 1
+        n[b] = min(kept, C)
+    return pos1, pos2, n, hits[0], hits[1]
+
+
+def _edge_locs(k, s, b, seed):
+    """(2, B, S*K) locations: random rows, then dense rows (every slot
+    valid), all invalid, duplicate-heavy rows with many survivors,
+    locations near +-2^31 (one start that wraps to INT_MAX, one target
+    that wraps) and starts near 0."""
+    rng = np.random.default_rng(seed)
+    M = s * k
+    x = rng.integers(-40, 300, (2, b, M)).astype(np.int64)
+    x[rng.random(x.shape) < 0.4] = INVALID_LOC
+    x[:, 1] = rng.integers(0, 2000, (2, M))                  # dense
+    x[:, 2] = INVALID_LOC                                    # no hits
+    x[1, 3] = INVALID_LOC                                    # mate 2 empty
+    x[:, 4] = np.arange(M) % 5 * 3                           # duplicates
+    x[:, 5] = 7                                              # all equal
+    x[:, 6] = rng.integers(-2**31, -2**31 + 300, (2, M))     # near -2^31
+    x[:, 7] = rng.integers(2**31 - 300, 2**31 - 1, (2, M))   # near +2^31
+    x[0, 6, 0] = -2**31 + 40 - 1    # seed 0 at offset 40: start INT_MAX
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("s,k,delta,c", [
+    (3, 32, 500, 8), (3, 4, 60, 1), (2, 8, 0, 4), (3, 32, 0, 1),
+    (1, 4, 30, 8), (3, 24, 50, 40),
+])
+def test_valid_only_sort_model_matches_repro_block(s, k, delta, c):
+    """The identity the warp merge block rests on: sorting only the valid
+    starts and probing only mate 1's valid ones gives repro's
+    `merge_filter_block` (the full stable sort of all M slots), M > 64
+    and more than 32 survivors included."""
+    from repro.kernels.pair_frontend.kernel import merge_filter_block
+    offs = (40, 80, 120)[:s] if s > 1 else (40,)
+    l = _edge_locs(k, s, 10, seed=s * k + delta + c)
+    want = merge_filter_block(jnp.asarray(l[0]), jnp.asarray(l[1]),
+                              seed_offs=offs, K=k, delta=delta, cap=c)
+    got = _valid_only_model(l[0], l[1], offs, k, delta, c)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w).reshape(g.shape))
+    if c == 1 and delta == 60:
+        assert got[2][4] == 1

@@ -1,7 +1,8 @@
 """repro_torch's residual DP fallback (step 5) against repro's on the CPU,
 exact equality: banded (band edges included) and band >= W, both
 reference flavors, windows on the reference edges, zero-item and
-all-item batches, and the plain Gotoh recurrences themselves."""
+all-item batches, the plain Gotoh recurrences themselves, and a numpy
+model of the CUDA kernel's warp recurrence (lane-split slots and scan)."""
 import dataclasses
 
 import numpy as np
@@ -22,7 +23,7 @@ from repro_torch.core.dp_fallback import (
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import INVALID_LOC
-from repro_torch.kernels.residual_dp.ops import residual_pair_dp
+from repro_torch.kernels.residual_dp.ops import lane_slots, residual_pair_dp
 
 L, R = 5000, 100
 FIELDS = ("score1", "ref_end1", "score2", "ref_end2", "dp_lanes")
@@ -116,3 +117,185 @@ def test_gotoh_recurrences_match_repro(b, r, w, band):
                                       np.asarray(want.score))
         np.testing.assert_array_equal(got.ref_end.numpy(),
                                       np.asarray(want.ref_end))
+
+
+def _shfl_up(x, d, fill):
+    """x (B, 32) per lane -> lane l gets lane l - d (``fill`` below d: the
+    kernel's lanes < d keep their own value and ignore it)."""
+    out = np.full_like(x, fill)
+    out[:, d:] = x[:, :-d]
+    return out
+
+
+def _warp_dp_model(read, win, band, sc):
+    """numpy model of csrc/gotoh.cuh::gotoh_dp_warp: 32 lanes own CPL
+    contiguous frame slots each; neighbours cross a lane edge as one
+    shuffle; the horizontal gap is an in-lane running max, a 32-lane
+    inclusive max-scan of the lane totals, then the exclusive shift.  The
+    banded rows whose frame lies inside [1, W] skip the column tests and
+    leave the slots past the frame unmasked, as the kernel does; the
+    frame's last slot takes NEG from the row above in their place."""
+    B, R = read.shape
+    W = win.shape[1]
+    full = band is None or band >= W
+    cols = W + 1 if full else 2 * band + 1
+    cpl = lane_slots(cols)
+    n = 32 * cpl
+    k = np.arange(n)
+    c = (W - R) // 2
+    op, ext = sc.gap_open, sc.gap_extend
+    first = op + ext
+    j0 = k if full else c - band + k
+    H = np.broadcast_to(np.where((k < cols) & (j0 >= 0) & (j0 <= W), 0, NEG),
+                        (B, n)).astype(np.int64)
+    E = np.full((B, n), NEG, np.int64)
+    win_ext = np.concatenate([win.astype(np.int64),
+                              np.full((B, n + R + W), -1)], 1)
+    rows = np.arange(B)[:, None]
+    i_head = R if full else min(R, max(0, band - c))
+    i_tail = R if full else max(i_head, min(R, W - c - band))
+    for i in range(R):
+        rb = read[:, i:i + 1].astype(np.int64)
+        if full:
+            e = np.maximum(H - first, E - ext)
+            diag = np.concatenate([np.zeros((B, 1), np.int64), H[:, :-1]], 1)
+            wb = win_ext[rows, np.clip(k - 1, 0, None)]
+            v = np.maximum(diag + np.where(rb == wb, sc.match, -sc.mismatch),
+                           e)
+            v[:, 0] = -(op + ext * (i + 1))
+            valid = k <= W
+        else:
+            up_h = np.concatenate([H[:, 1:], np.full((B, 1), NEG)], 1)
+            up_e = np.concatenate([E[:, 1:], np.full((B, 1), NEG)], 1)
+            up_h[:, k + 1 >= cols] = NEG
+            up_e[:, k + 1 >= cols] = NEG
+            e = np.maximum(up_h - first, up_e - ext)
+            jcol = i + 1 + c - band + k
+            inwin = (jcol >= 1) & (jcol <= W)
+            wb = np.where(inwin, win_ext[rows, np.clip(jcol - 1, 0, None)],
+                          -1)
+            v = np.maximum(H + np.where(rb == wb, sc.match, -sc.mismatch), e)
+            if i_head <= i < i_tail:    # every frame slot in [1, W]; slots
+                valid = np.ones(n, bool)    # past the frame left unmasked
+            else:
+                v[:, jcol == 0] = -(op + ext * (i + 1))
+                valid = (k < cols) & (jcol >= 0) & (jcol <= W)
+        v = np.where(valid, v, NEG)
+        E = e
+        # the lane-split scan
+        g = (v + ext * k).reshape(B, 32, cpl)
+        run = np.maximum.accumulate(g, axis=2)
+        scan = run[:, :, -1].copy()
+        d = 1
+        while d < 32:
+            scan = np.maximum(scan, _shfl_up(scan, d, np.iinfo(np.int64).min))
+            d *= 2
+        before = _shfl_up(scan, 1, NEG)[:, :, None]
+        pre = np.concatenate([before, np.maximum(before, run[:, :, :-1])], 2)
+        pre[:, 0, 1:] = run[:, 0, :-1]
+        f = pre.reshape(B, n) - op - ext * k
+        H = np.where(valid, np.maximum(v, f), NEG)
+    last = np.where(k < cols, H, np.iinfo(np.int64).min)
+    arg = np.argmax(last, axis=1)
+    score = last[np.arange(B), arg]
+    return score, (arg if full else R + c - band + arg), H[:, :cols]
+
+
+def _sequential_last_row(read, win, band, sc):
+    """The last DP row as csrc/gotoh.cuh::gotoh_dp computes it: the
+    horizontal gap's running max taken slot by slot along each row."""
+    B, R = read.shape
+    W = win.shape[1]
+    full = band is None or band >= W
+    cols = W + 1 if full else 2 * band + 1
+    c = (W - R) // 2
+    op, ext = sc.gap_open, sc.gap_extend
+    first = op + ext
+    rd, wn = read.astype(np.int64), win.astype(np.int64)
+    j0 = np.arange(cols) if full else c - band + np.arange(cols)
+    H = np.where((j0 >= 0) & (j0 <= W), 0, NEG) + np.zeros((B, 1), np.int64)
+    E = np.full((B, cols), NEG, np.int64)
+    for i in range(R):
+        up_h = H.copy() if full else np.concatenate(
+            [H[:, 1:], np.full((B, 1), NEG)], 1)
+        up_e = E if full else np.concatenate(
+            [E[:, 1:], np.full((B, 1), NEG)], 1)
+        E = np.maximum(up_h - first, up_e - ext)
+        prev = H.copy()
+        gmax = None
+        for k in range(cols):
+            j = k if full else i + 1 + c - band + k
+            if full:
+                ht = -(op + ext * (i + 1)) if k == 0 else np.maximum(
+                    prev[:, k - 1] + np.where(rd[:, i] == wn[:, k - 1],
+                                              sc.match, -sc.mismatch),
+                    E[:, k])
+            else:
+                wb = wn[:, j - 1] if 1 <= j <= W else -1
+                ht = np.maximum(prev[:, k] + np.where(rd[:, i] == wb,
+                                                      sc.match,
+                                                      -sc.mismatch), E[:, k])
+                if j == 0:
+                    ht = np.full(B, -(op + ext * (i + 1)))
+            valid = 0 <= j <= W
+            if not valid:
+                ht = np.full(B, NEG)
+            f = (NEG if k == 0 else gmax) - op - ext * k
+            g = ht + ext * k
+            gmax = g if k == 0 else np.maximum(gmax, g)
+            H[:, k] = np.maximum(ht, f) if valid else NEG
+    return H
+
+
+LONG_GAP = Scoring(match=2, mismatch=20, gap_open=6, gap_extend=1)
+
+
+@pytest.mark.parametrize("b,r,w,band,sc", [
+    (6, 150, 182, 0, Scoring()), (6, 150, 182, 1, Scoring()),
+    (6, 150, 182, 2, Scoring()), (6, 150, 182, 24, Scoring()),
+    (6, 150, 182, None, Scoring()), (5, 45, 77, 24, LONG_GAP),
+    (4, 37, 45, 3, Scoring()), (3, 40, 52, 40, Scoring()),
+    (4, 40, 200, None, LONG_GAP),
+])
+def test_warp_scan_model_matches_repro(b, r, w, band, sc):
+    """The identities the warp recurrence rests on: lane-split neighbours
+    and a lane-split running max give every cell of repro's banded and
+    full DP (jnp oracle and the shared `dp_block`).  Row 2 aligns across
+    a deletion as long as the band (or the window) allows, so its best
+    path takes a horizontal gap across many lanes; in the full DP, row 3
+    sits at the window's left edge, so the last row's right end is a gap
+    from there."""
+    from repro.kernels.banded_sw.kernel import dp_block
+    rng = np.random.default_rng(r * w + (band or 0))
+    read = rng.integers(0, 4, (b, r), np.uint8)
+    win = rng.integers(0, 4, (b, w), np.uint8)
+    c = (w - r) // 2
+    win[0, c:c + r] = read[0]                  # an exact placement
+    win[1, c + 2:c + r] = read[1, :r - 2]      # a 2-base shift
+    gap = min(band if band is not None else w, w - r) - 2
+    head = r // 2 if band is not None else 10
+    start = c - gap // 2 if band is not None else 0
+    read[2, :head] = win[2, start:start + head]
+    read[2, head:] = win[2, start + head + gap:start + gap + r]
+    if band is None:        # the last row's gap runs over most lanes
+        win[3, :r] = read[3]
+    jsc = JScoring(**dataclasses.asdict(sc))
+    score, end, last = _warp_dp_model(read, win, band, sc)
+    if sc == LONG_GAP:      # every cell of the last row, gaps included
+        np.testing.assert_array_equal(
+            last, _sequential_last_row(read, win, band, sc))
+    want = j_banded(jnp.asarray(read), jnp.asarray(win), band, jsc)
+    np.testing.assert_array_equal(score, np.asarray(want.score))
+    np.testing.assert_array_equal(end, np.asarray(want.ref_end))
+    blk_score, blk_end = dp_block(jnp.asarray(read, jnp.int32),
+                                  jnp.asarray(win, jnp.int32),
+                                  scoring=jsc, band=band)
+    np.testing.assert_array_equal(score, np.asarray(blk_score))
+    np.testing.assert_array_equal(end, np.asarray(blk_end))
+
+
+def test_lane_slots_cover_the_row():
+    assert [lane_slots(c) for c in (1, 32, 33, 49, 183, 263, 1024)] == \
+        [1, 1, 2, 2, 6, 16, 32]
+    with pytest.raises(ValueError, match="1024 columns"):
+        lane_slots(1025)
