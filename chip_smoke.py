@@ -44,7 +44,9 @@ Phases (any failure exits non-zero; nothing is caught):
      larger) and the decode logits against a teacher-forced forward over
      the same 2,080 tokens (relative L2 <= 5e-2);
   3. each kernel against its plain version at the shapes the main paths
-     give it: the same 65,536-pair batch `map` got, the 16,384-row
+     give it: the same 65,536-pair batch `map` got (extra checks of
+     seed_buckets: R 151 with codes 0-255 on 1,000 rows starting off a
+     word; its device time also with the reads cold), the 16,384-row
      residual buffer that step 5 builds from it (extra checks at that
      size: the unpacked flavor, prescreen_top 4, a band >= W DP; the
      batch with every candidate slot valid, the residual buffer with every
@@ -53,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and the number of alignments candidate_align ran against the bound's
      count), the
      long-read batch's diagonal rows and anchor windows (extra checks:
-     synthetic vote rows, bands 16 and >= W), the sharded plan's
+     synthetic vote rows, bands 16 and >= W, windows shorter than the
+     read and rows wider than the warp kernel covers), the sharded plan's
      gathered (B, S, K) locations of the pair batch (extra check: 4,096
      synthetic rows) and phase 2d's inputs of the building blocks (extra
      checks: xxhash32 of one row under seeds 0, 99 and 0xFFFFFFFF;
@@ -62,7 +65,8 @@ Phases (any failure exits non-zero; nothing is caught):
      outside the table); flash_attention at the prefill's shapes (BH 256,
      S 2,048, D 128, bf16, causal, K/V head h // 8; extra checks: float32,
      S 2,000 padded, causal=False, D 80 and 64); exact equality (flash:
-     3e-2 in bf16, 1e-4 in float32), timed with CUDA events, and
+     3e-2 in bf16, 1e-4 in float32), timed with CUDA events (`ms`) and
+     torch.profiler (`device_ms`, inputs warm in L2), and
      `torch.index_select` and `scaled_dot_product_attention` timed
      beside seed_gather and flash_attention;
   4. the same batches through the kernel Mapper and plain-backend
@@ -75,6 +79,7 @@ Exits 1 without a result when no CUDA device is available.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -184,6 +189,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` (every kernel and copy it launched),
+    torch.profiler over ``iters`` calls after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
 def max_abs_err(got, want) -> float:
     """Largest |got - want| over every field of two result tuples."""
     worst = 0.0
@@ -264,7 +285,7 @@ def main() -> int:
         ReadSimConfig, random_reference, simulate_long_reads, simulate_pairs)
     from repro_torch.engine import ExecutionConfig, Mapper
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels._util import kernel_reference
+    from repro_torch.kernels._util import kernel_reference, lane_slots
     from repro_torch.kernels.banded_sw.ops import banded_sw
     from repro_torch.kernels.candidate_align.ops import candidate_pair_align
     from repro_torch.kernels.candidate_align.ref import gather_windows
@@ -835,6 +856,7 @@ def main() -> int:
                 {"case": case, "max_abs_err": err, "tolerance": tol})
         if timed:
             entry["ms"] = time_ms(run_kernel, iters)
+            entry["device_ms"] = device_ms(run_kernel)
             entry["plain_ms"] = time_ms(run_plain, 3, warmup=1)
             entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops,
                                                          ops_per_s)
@@ -851,6 +873,30 @@ def main() -> int:
                                       hs, T),),
             n_bytes=2 * B * R + 2 * B * S * 4,
             n_ops=2 * B * S * (2 * pipe.seed_len + 40))
+    # odd R (tiles start off a word), codes 0-255 (a code > 3 carries into
+    # the next base), 1,000 rows (not a multiple of the 64-row tile),
+    # mate 1 starting 5 bytes past an aligned address
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    odd = torch.randint(0, 256, (2, 1000 * 151 + 16), generator=g,
+                        device=dev, dtype=torch.uint8)
+    o1, o2 = odd[0, 5:5 + 1000 * 151].view(1000, 151), \
+        odd[1, :1000 * 151].view(1000, 151)
+    compare("seed_buckets",
+            lambda: (seed_buckets(o1, o2, pipe.seed_len, S, hs, T),),
+            lambda: (seed_buckets_ref(torch.cat([o1, o2]), pipe.seed_len, S,
+                                      hs, T),),
+            0, 0, timed=False, case="R 151, codes 0-255, B 1,000")
+    del odd, o1, o2
+    # the wrapper's device time with the reads cold: the calls rotate over
+    # 4 copies of the batch (79 MB, past the 50 MB L2)
+    copies = [(r1.clone(), r2.clone()) for _ in range(4)]
+    turn = itertools.cycle(copies)
+    kernels["seed_buckets"]["cold_device_ms"] = device_ms(
+        lambda: seed_buckets(*next(turn), pipe.seed_len, S, hs, T), iters=12)
+    print(f"[3] seed_buckets: "
+          f"{kernels['seed_buckets']['cold_device_ms']:.4f} ms of device "
+          f"time (reads cold)")
+    del copies, turn
 
     # kernel 2: row gather + stable sort + Δ filter + compaction.  The
     # function's own work: each mate's M row slots scanned, its h valid
@@ -1060,6 +1106,35 @@ def main() -> int:
             n_bytes=Bl * (Ra + Wa) + 8 * Bl,
             n_ops=Bl * Ra * cols * 14,
             timed=band == lr.band(), iters=10)
+    # the frame slots per lane the wrapper took for the lane's band
+    kernels["banded_sw"]["cpl"] = lane_slots(2 * lr.band() + 1)
+    # windows shorter than the read (the band centre at floor((W - R) / 2),
+    # the first and last rows' slice start moved as repro moves it), on
+    # synthetic reads holding their window on and off the centre; then rows
+    # wider than the warp kernel covers (the one-thread kernel)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for r_s, w_s, band_s in ((150, 149, 16), (150, 147, 8), (40, 35, 10),
+                             (150, 1100, None), (150, 1100, 600)):
+        n_s = Bl if w_s < r_s else 256
+        w_syn = torch.randint(0, 4, (n_s, w_s), generator=g, device=dev,
+                              dtype=torch.uint8)
+        r_syn = torch.randint(0, 4, (n_s, r_s), generator=g, device=dev,
+                              dtype=torch.uint8)
+        lo, hi = sorted((r_s, w_s))
+        at = torch.randint(0, hi - lo + 1, (n_s,), generator=g, device=dev)
+        cols_at = at[:, None] + torch.arange(lo, device=dev)
+        if w_s < r_s:        # the window inside the read
+            r_syn.scatter_(1, cols_at, w_syn)
+        else:                # the read inside the window
+            w_syn.scatter_(1, cols_at, r_syn)
+        compare("banded_sw",
+                lambda a=r_syn, b=w_syn, bd=band_s: banded_sw(
+                    a, b, lp.scoring, bd, backend="cuda"),
+                lambda a=r_syn, b=w_syn, bd=band_s: banded_sw(
+                    a, b, lp.scoring, bd, backend="torch"),
+                0, 0, timed=False,
+                case=f"R {r_s}, W {w_s}, band {band_s}, {n_s} reads")
+    del w_syn, r_syn, at, cols_at
     record["long_kernel_shapes"] = {"reads": Bl, "diag_slots": Ml,
                                     "anchor_len": Ra, "window": Wa}
     print(f"[3] long-read batch: {Bl} diagonal rows of {Ml} slots, "

@@ -59,13 +59,30 @@ def band_center(read_len: int, win_len: int) -> int:
     return (win_len - read_len) // 2
 
 
+def slice_start(start: int, W: int, band: int) -> int:
+    """Where repro's `jax.lax.dynamic_slice_in_dim` takes a row's
+    ``2*band + 1`` bases of the ``W + 2*band + 2``-wide padded window: a
+    negative start counts from the end, then the start is clamped into
+    ``[0, W + 1]``.  Every start of a window at least as long as the read
+    is already in that range."""
+    if start < 0:
+        start += W + 2 * band + 2
+    return min(max(start, 0), W + 1)
+
+
 def gotoh_semiglobal_banded(read: torch.Tensor, refwin: torch.Tensor,
                             band: int | None,
                             scoring: Scoring = Scoring()) -> DPResult:
     """Banded batched semiglobal Gotoh over the ``K = 2*band + 1`` moving
     frame: slot k of row i is column ``j = i + c - band + k``; cells outside
     ``[0, W]`` are ``NEG``.  ``band is None`` or ``band >= W`` is the exact
-    full DP (`gotoh_semiglobal`)."""
+    full DP (`gotoh_semiglobal`).
+
+    Row i compares its read base with the K bases of the padded window
+    from `slice_start` ``(i + c + 1)`` on.  Only a window shorter than the
+    read (``c <= -2``, or ``R + c > W + 1``) moves a start there; the
+    in-band cells of such a row then score against other bases than their
+    own (shifted ones, or the padding), as repro's do."""
     B, R = read.shape
     W = refwin.shape[-1]
     if band is None or band >= W:
@@ -91,7 +108,8 @@ def gotoh_semiglobal_banded(read: torch.Tensor, refwin: torch.Tensor,
         h_up = torch.cat([h[:, 1:], neg], 1)
         e_up = torch.cat([e[:, 1:], neg], 1)
         e = torch.maximum(h_up - first, e_up - ext)
-        wrow = win_pad[:, i + c + 1:i + c + 1 + K]
+        start = slice_start(i + c + 1, W, band)
+        wrow = win_pad[:, start:start + K]
         sub = torch.where(read32[:, i:i + 1] == wrow, scoring.match,
                           -scoring.mismatch).to(torch.int32)
         h_tmp = torch.maximum(h + sub, e)

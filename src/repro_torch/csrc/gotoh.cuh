@@ -1,38 +1,46 @@
 // The semiglobal Gotoh recurrence of the CUDA kernels, shared by
 // residual_dp.cu and banded_sw.cu as repro's banded_sw/kernel.py ::
-// dp_block is shared by residual_dp_pallas and banded_sw_pallas.  Two
-// recurrences compute the same cells:
+// dp_block is shared by residual_dp_pallas and banded_sw_pallas.  Both
+// align one (R,) read against one (W,) reference window, over the
+// 2*band+1 frame around the window's centre diagonal c = floor((W - R) /
+// 2) (frame slot k of row i is column i + c - band + k; cells outside
+// [0, W] are NEG), or over all W+1 columns when band < 0.  Score is the
+// max of the last row, ref_end the first column that reaches it.
 //
-// gotoh_dp (banded_sw.cu): one thread aligns one (R,) read against one
-// (W,) reference window, over the 2*band+1 frame around the window's
-// centre diagonal c = (W - R) / 2 (frame slot k of row i is column
-// i + c - band + k; cells outside [0, W] are NEG), or over all W+1
-// columns when band < 0.  Score is the max of the last row, ref_end the
-// first column that reaches it.  The horizontal gap is the reference's
-// running max of h_tmp + ext*k taken sequentially along the row.  The
-// thread's H and E rows live in shared memory at H[k * stride] and
-// H[(cols + k) * stride], so a block's threads sit column-major side by
-// side (conflict-free).  `Window` is how a window base is read: win(j) is
-// base j of the window, 0 <= j < W.
+// Row i of a banded frame reads its K = 2*band+1 window bases where
+// repro's dynamic_slice_in_dim takes them from the padded window: from
+// row_start(i + c + 1) - band - 1 on.  That is column j - 1 for slot k,
+// except in the first or last rows of a window shorter than the read,
+// whose start repro wraps or clamps; their in-band cells then score
+// against shifted bases, or against the padding (a mismatch), as repro's
+// do.  Two recurrences compute the same cells:
 //
-// gotoh_dp_warp (residual_dp.cu): the 32 lanes of a warp align one read.
-// Lane l owns the CPL contiguous frame slots l*CPL .. l*CPL+CPL-1 (slots
-// past the frame are padding, always dead) and keeps their H and E in
-// registers.  The vertical neighbour of the banded frame is slot k+1 of
-// the previous row, one __shfl_down_sync at the lane's last slot; the
-// full DP's diagonal is column j-1, one __shfl_up_sync at the lane's
-// first.  The horizontal gap's running max is an in-lane running max, an
-// inclusive warp max-scan of the lane totals (5 shuffles) and a shift to
-// the exclusive prefix: max is exact on int32, so every cell equals the
-// sequential version's (repro's TPU kernel computes the same maximum
-// with a Hillis-Steele scan), dead cells and the column-0 rule included.
-// Only the first and last rows of a banded frame can hold column 0 or
-// columns past W; the rows between skip those tests, and slots past the
-// frame then hold values nothing reads (the frame's last slot takes NEG
-// from the row above in their place).
-// The caller stages the read and the window in the warp's shared memory,
-// the window between pads (gotoh_warp_stage) so that no read of it needs
-// a bounds check.
+// gotoh_dp (banded_sw.cu, rows wider than the warp covers): one thread
+// aligns one read.  The horizontal gap is the reference's running max of
+// h_tmp + ext*k taken sequentially along the row.  The thread's H and E
+// rows live in shared memory at H[k * stride] and H[(cols + k) * stride],
+// so a block's threads sit column-major side by side (conflict-free).
+// `Window` is how a window base is read: win(j) is base j of the window,
+// 0 <= j < W.
+//
+// gotoh_dp_warp (residual_dp.cu and banded_sw.cu): the 32 lanes of a
+// warp align one read.  Lane l owns the CPL contiguous frame slots
+// l*CPL .. l*CPL+CPL-1 (slots past the frame are padding, always dead)
+// and keeps their H and E in registers.  The vertical neighbour of the
+// banded frame is slot k+1 of the previous row, one __shfl_down_sync at
+// the lane's last slot; the full DP's diagonal is column j-1, one
+// __shfl_up_sync at the lane's first.  The horizontal gap's running max
+// is an in-lane running max, an inclusive warp max-scan of the lane
+// totals (5 shuffles) and a shift to the exclusive prefix: max is exact
+// on int32, so every cell equals the sequential version's (repro's TPU
+// kernel computes the same maximum with a Hillis-Steele scan), dead cells
+// and the column-0 rule included.  Only the first and last rows of a
+// banded frame can hold column 0 or columns past W, or a moved start;
+// the rows between skip those tests, and slots past the frame then hold
+// values nothing reads (the frame's last slot takes NEG from the row
+// above in their place).  The caller stages the read and the window in
+// the warp's shared memory, the window between pads (gotoh_warp_stage)
+// so that no read of it needs a bounds check.
 #pragma once
 
 #include <type_traits>
@@ -45,6 +53,21 @@ struct DPOut {
   int score, end;
 };
 
+// Floor of (W - R) / 2: core/dp_fallback.py::band_center.
+__host__ __device__ inline int band_centre(int R, int W) {
+  const int d = W - R;
+  return d >= 0 ? d / 2 : -((1 - d) / 2);
+}
+
+// Start, in the window padded by band+1 on each side, of the K bases a
+// banded row compares, given its unclamped start s = i + c + 1:
+// core/dp_fallback.py::slice_start, except that a start below -2*band
+// (which wraps into [0, W+1] there) also gives W+1: such a row holds no
+// cell in [0, W], so nothing it reads is used.
+__host__ __device__ inline int row_start(int s, int W) {
+  return s < 0 || s > W + 1 ? W + 1 : s;
+}
+
 template <class Window>
 __device__ DPOut gotoh_dp(const uint8_t* read, int R, int W, int band,
                           Scoring sc, const Window& win, int* H,
@@ -53,7 +76,7 @@ __device__ DPOut gotoh_dp(const uint8_t* read, int R, int W, int band,
   const int cols = full ? W + 1 : 2 * band + 1;
   int* E = H + cols * stride;
   const int op = sc.gap_open, ext = sc.gap_extend, first = op + ext;
-  const int c = (W - R) / 2;                    // band centre diagonal
+  const int c = band_centre(R, W);
 
   if (full) {
     for (int j = 0; j <= W; ++j) {
@@ -87,13 +110,17 @@ __device__ DPOut gotoh_dp(const uint8_t* read, int R, int W, int band,
     }
     for (int i = 0; i < R; ++i) {
       const int rb = read[i];
+      // the window index slot k reads is q0 + k (jcol - 1 unless moved)
+      const int q0 = row_start(i + c + 1, W) - band - 1;
       int gmax = 0;
       for (int k = 0; k < cols; ++k) {
         const int jcol = i + 1 + c - band + k;
         const int h_up = k + 1 < cols ? H[(k + 1) * stride] : NEG;
         const int e_up = k + 1 < cols ? E[(k + 1) * stride] : NEG;
         const int e = max(h_up - first, e_up - ext);
-        const int wb = (jcol >= 1 && jcol <= W) ? win(jcol - 1) : -1;
+        const int q = q0 + k;
+        const int wb = (jcol >= 1 && jcol <= W && q >= 0 && q < W) ? win(q)
+                                                                  : -1;
         int ht = max(H[k * stride] + (rb == wb ? sc.match : -sc.mismatch), e);
         if (jcol == 0) ht = -(op + ext * (i + 1));
         const bool valid = jcol >= 0 && jcol <= W;
@@ -117,18 +144,14 @@ __device__ DPOut gotoh_dp(const uint8_t* read, int R, int W, int band,
   return DPOut{best, full ? arg : R + c - band + arg};
 }
 
-// Floor of (W - R) / 2: core/dp_fallback.py::band_center.
-__host__ __device__ inline int band_centre(int R, int W) {
-  const int d = W - R;
-  return d >= 0 ? d / 2 : -((1 - d) / 2);
-}
-
 // Shared-memory layout of one warp's staged window: W bases at
 // [left, left + W) of `bytes` (a multiple of 4), with pads on both sides
-// wide enough that gotoh_dp_warp reads window index i + c - band + k - 1
-// (FULL: k - 1) for every row i and slot k < 32*cpl without a bounds
-// check.  Pad bytes only meet cells outside [1, W], whose substitution
-// score is never used (they are NEG, or column 0's fixed value).
+// wide enough that gotoh_dp_warp reads window index
+// row_start(i + c + 1) - band - 1 + k (FULL: k - 1) for every row i and
+// slot k < 32*cpl without a bounds check.  Pad bytes (0) only meet cells
+// whose substitution score is never used (NEG, or column 0's fixed
+// value), or cells of a moved row, which test the index themselves.
+// Row starts grow with i; a moved start is W + 1.
 struct WarpStage {
   int left, bytes;
 };
@@ -137,8 +160,12 @@ __host__ __device__ inline WarpStage gotoh_warp_stage(int R, int W, int band,
                                                       int cpl) {
   const bool full = band < 0;
   const int c = band_centre(R, W);
-  const int lo = full ? -1 : c - band;              // least index read
-  const int hi = full ? 32 * cpl - 2 : R + c - band + 32 * cpl - 2;
+  // least and greatest row start (row_start of rows 0 and R - 1, or W + 1
+  // where a first row's start moved)
+  const int s_lo = c + 1 < 0 ? 0 : c + 1;
+  const int s_hi = c + 1 < 0 || R + c > W + 1 ? W + 1 : R + c;
+  const int lo = full ? -1 : s_lo - band - 1;       // least index read
+  const int hi = full ? 32 * cpl - 2 : s_hi - band + 32 * cpl - 2;
   const int left = lo < 0 ? -lo : 0;
   const int end = left + (hi + 1 > W ? hi + 1 : W);
   return WarpStage{left, (end + 3) & ~3};
@@ -171,9 +198,10 @@ __device__ DPOut gotoh_dp_warp(const uint8_t* read, int R,
     H[t] = (frame[t] && j0 >= 0 && j0 <= W) ? 0 : NEG;
     E[t] = NEG;
   }
-  // One row.  CHECK: the row may hold column 0 or columns past W (the
-  // first and last rows of a banded frame, every row of the full DP);
-  // otherwise every frame slot is a column in [1, W] and needs no test.
+  // One row.  CHECK: the row may hold column 0 or columns past W, or
+  // have a moved start (the first and last rows of a banded frame, every
+  // row of the full DP); otherwise every frame slot is a column in
+  // [1, W], read at window index j - 1, and needs no test.
   // Slots past the frame are not kept dead: the frame's last slot takes
   // NEG from the row above in their place, and nothing else reads them.
   auto row = [&](int i, auto check) {
@@ -186,13 +214,20 @@ __device__ DPOut gotoh_dp_warp(const uint8_t* read, int R,
     [[maybe_unused]] const int e_edge =
         FULL ? NEG : __shfl_down_sync(ALL, E[0], 1);
     const int jr = FULL ? j_off : i + 1 + j_off;   // column of slot 0
-    const uint8_t* wrow = win + jr - 1;
+    // window index of slot 0: jr - 1, or the moved start's (CHECK rows)
+    const int q0 = FULL || !CHECK ? jr - 1
+                                  : row_start(i + c + 1, W) - band - 1 + k0;
+    const uint8_t* wrow = win + q0;
     int ht[CPL];
     bool valid[CPL];
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
       const int j = jr + t;
-      const int sub = rb == wrow[t] ? sc.match : -sc.mismatch;
+      bool hit = rb == wrow[t];
+      if (!FULL && CHECK)        // a moved row may read pads in its band
+        hit = hit && static_cast<unsigned>(q0 + t) <
+                         static_cast<unsigned>(W);
+      const int sub = hit ? sc.match : -sc.mismatch;
       int v, e;
       if constexpr (FULL) {
         e = max(H[t] - first, E[t] - ext);

@@ -139,7 +139,7 @@ int launch_cpl(bool full, bool packed, long long blocks, size_t smem,
 // `pad` in front), of ref_len words or bases before the padding;
 // reads1/reads2: (N, R) uint8; pos1/pos2: (N,) int32 window anchors,
 // INVALID_LOC for none; need1/need2: (N,) bool; win_hi: the packed window
-// start's clamp; cpl: frame slots per lane, one of 1, 2, 4, 6, 8, 16, 32,
+// start's clamp; cpl: frame slots per lane, one of 1, 2, 3, 4, 6, 8, 16, 32,
 // with 32 * cpl >= the frame's columns; score/end: (N, 2) int32, slot
 // 2*row + mate.  band < 0: full DP.
 extern "C" int residual_dp_launch(
@@ -163,6 +163,7 @@ extern "C" int residual_dp_launch(
   switch (cpl) {
     case 1: return launch_cpl<1>(REPRO_ARGS);
     case 2: return launch_cpl<2>(REPRO_ARGS);
+    case 3: return launch_cpl<3>(REPRO_ARGS);
     case 4: return launch_cpl<4>(REPRO_ARGS);
     case 6: return launch_cpl<6>(REPRO_ARGS);
     case 8: return launch_cpl<8>(REPRO_ARGS);

@@ -2,7 +2,8 @@
 residual_dp): both read a contiguous window of a padded reference, so
 their starts are clamped by one shared rule per reference flavor
 (`window_starts`; the candidate_align kernel applies it itself).  Also
-the staged row stride of the Light Alignment kernels."""
+the staged row stride of the Light Alignment kernels, and the frame
+slots per lane of the warp DP kernels (residual_dp and banded_sw)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -82,3 +83,18 @@ def staged_stride(n: int) -> int:
     kernels: whole 4-byte words, an odd number of them (a warp's 32 rows
     then fall in 32 banks)."""
     return 4 * (((n + 3) // 4) | 1)
+
+
+#: frame slots per lane the warp DP kernels are built for
+#: (csrc/residual_dp.cu, csrc/banded_sw.cu)
+LANE_SLOTS = (1, 2, 3, 4, 6, 8, 16, 32)
+
+
+def lane_slots(cols: int) -> int:
+    """Frame slots each of a warp's 32 lanes owns for a ``cols``-column
+    DP row: the least built value with 32 of them covering the row."""
+    for cpl in LANE_SLOTS:
+        if 32 * cpl >= cols:
+            return cpl
+    raise ValueError(f"a {cols}-column DP row exceeds the warp kernel's "
+                     f"{32 * LANE_SLOTS[-1]} columns")

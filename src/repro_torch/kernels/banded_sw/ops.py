@@ -1,8 +1,10 @@
 """Public wrapper of the banded Gotoh DP (the long-read anchor DP).
 
-On CUDA tensors `banded_sw` launches the `banded_sw` kernel, which runs
-csrc/gotoh.cuh's one-thread recurrence on gathered windows (`residual_dp`
-runs the warp recurrence of the same file); on CPU tensors (or with
+On CUDA tensors `banded_sw` launches the `banded_sw` kernel library entry,
+which picks one of two hand-written kernels by the row's width (not on
+failure): rows of up to 1,024 columns run csrc/gotoh.cuh's warp
+recurrence, one warp per read (as `residual_dp` does), and wider rows its
+one-thread recurrence, up to 6,144 columns.  On CPU tensors (or with
 ``backend="torch"``) it runs the plain version.
 """
 from __future__ import annotations
@@ -13,18 +15,20 @@ from repro_torch.core.dp_fallback import DPResult
 from repro_torch.core.scoring import Scoring
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
+from repro_torch.kernels._util import LANE_SLOTS, lane_slots
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.banded_sw.ref import gotoh_banded_ref
 
 BANDED_SW = _cuda.register(
-    "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 9 + (PTR,) * 3)
+    "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 10 + (PTR,) * 3)
 
 MAX_SHARED = 48 * 1024
 
 
 def dp_threads(cols: int) -> int:
-    """Threads per block so each thread's H and E rows (2*cols int32) fit
-    48 KB of shared memory; whole warps where possible."""
+    """Threads per block of the one-thread kernel so each thread's H and E
+    rows (2*cols int32) fit 48 KB of shared memory; whole warps where
+    possible."""
     t = min(128, MAX_SHARED // (8 * cols))
     if t < 1:
         raise ValueError(f"a {cols}-column DP row exceeds shared memory")
@@ -37,7 +41,13 @@ def banded_sw(read: torch.Tensor, win: torch.Tensor,
     """Batched semiglobal Gotoh of (B, R) uint8 reads against (B, W) uint8
     windows.  ``band`` restricts the DP to cells within ``band`` of the
     window's centre diagonal (`core.dp_fallback.band_center`); ``None``
-    or ``band >= W`` is the exact full DP."""
+    or ``band >= W`` is the exact full DP.
+
+    On the card a row of ``cols`` columns (``2*band + 1``, or ``W + 1``)
+    up to 1,024 runs the warp kernel at `lane_slots` ``(cols)`` frame
+    slots per lane (one whose staged read and window pass 48 KB, R + W
+    beyond ~48,000 bases, runs the one-thread kernel); a wider row runs
+    the one-thread kernel, and one past 6,144 columns is refused."""
     backend = resolve_backend(backend, read.device, family="banded_sw")
     if backend == "torch":
         return gotoh_banded_ref(read, win, band, scoring)
@@ -49,10 +59,12 @@ def banded_sw(read: torch.Tensor, win: torch.Tensor,
         raise ValueError(f"band must be >= 0 or None, got {band}")
     full = band is None or band >= W
     cols = W + 1 if full else 2 * band + 1
+    cpl = lane_slots(cols) if cols <= 32 * LANE_SLOTS[-1] else 0
+    threads = dp_threads(cols)
     score, end = (torch.empty(B, dtype=torch.int32, device=read.device)
                   for _ in range(2))
     BANDED_SW(read.data_ptr(), win.data_ptr(), B, R, W, -1 if full else band,
-              dp_threads(cols), scoring.match, scoring.mismatch,
+              cpl, threads, scoring.match, scoring.mismatch,
               scoring.gap_open, scoring.gap_extend, score.data_ptr(),
               end.data_ptr(), _cuda.stream_of(read))
     return DPResult(score=score, ref_end=end)

@@ -13,6 +13,9 @@ in `ref.py`.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.core.seeding import seed_offsets_tuple
@@ -47,6 +50,22 @@ def _check_merge_smem(S: int, K: int) -> None:
         raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
 
 
+@functools.lru_cache(maxsize=64)
+def _seed_offsets(read_len: int, seed_len: int, seeds_per_read: int
+                  ) -> tuple[int, ...]:
+    """`seed_offsets_tuple`, computed once per shape: a mapping step calls
+    the front end once per batch, and the pair step's host time bounds
+    it."""
+    return seed_offsets_tuple(read_len, seed_len, seeds_per_read)
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets_array(offs: tuple[int, ...]) -> ctypes.Array:
+    """The launchers' host int array of the seed offsets, built once per
+    tuple (the launcher copies it into the kernel's arguments)."""
+    return _cuda.int_array(offs)
+
+
 def _frontend_outputs(B: int, C: int, dev) -> tuple:
     pos1 = torch.empty((B, C), dtype=torch.int32, device=dev)
     pos2 = torch.empty((B, C), dtype=torch.int32, device=dev)
@@ -62,7 +81,7 @@ def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
     B, R = reads1.shape
     _cuda.check(reads1, "reads1", torch.uint8)
     _cuda.check(reads2, "reads2", torch.uint8, (B, R))
-    offs = seed_offsets_tuple(R, seed_len, seeds_per_read)
+    offs = _seed_offsets(R, seed_len, seeds_per_read)
     if len(offs) > MAX_SEEDS or seed_len > 64:
         raise ValueError("seed_buckets supports S <= 16 seeds of <= 64 bp")
     if table_size & (table_size - 1):
@@ -70,7 +89,7 @@ def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
     out = torch.empty((2 * B, len(offs)), dtype=torch.int32,
                       device=reads1.device)
     SEED_BUCKETS(reads1.data_ptr(), reads2.data_ptr(), B, R,
-                 _cuda.int_array(offs), len(offs), seed_len,
+                 _offsets_array(offs), len(offs), seed_len,
                  hash_seed & 0xFFFFFFFF, table_size - 1, out.data_ptr(),
                  _cuda.stream_of(reads1))
     return out
@@ -91,7 +110,7 @@ def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
     _check_merge_smem(S, K)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, rows.device)
     PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,
-                  _cuda.int_array(seed_offs), delta, C, pos1.data_ptr(),
+                  _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
                   pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
                   nh2.data_ptr(), _cuda.stream_of(rows))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
@@ -121,7 +140,7 @@ def frontend_merge_filter(
     _check_merge_smem(S, K)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, locs1.device)
     MERGE_FILTER(locs1.data_ptr(), locs2.data_ptr(), B, S, K,
-                 _cuda.int_array(seed_offs), delta, C, pos1.data_ptr(),
+                 _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
                  pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
                  nh2.data_ptr(), _cuda.stream_of(locs1))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
@@ -148,7 +167,7 @@ def pair_frontend(
     T = rows.shape[0]
     buckets = seed_buckets(reads1, reads2, seed_len, seeds_per_read,
                            hash_seed, T)
-    offs = seed_offsets_tuple(reads1.shape[1], seed_len, seeds_per_read)
+    offs = _seed_offsets(reads1.shape[1], seed_len, seeds_per_read)
     return frontend_from_buckets(rows, buckets, offs, delta, max_candidates)
 
 

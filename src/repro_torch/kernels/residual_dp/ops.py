@@ -16,7 +16,11 @@ from repro_torch.core.encoding import packed_gather_coords
 from repro_torch.core.scoring import Scoring
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
-from repro_torch.kernels._util import KernelRef, kernel_reference
+from repro_torch.kernels._util import (
+    KernelRef,
+    kernel_reference,
+    lane_slots,
+)
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.residual_dp.ref import (
     ResidualDPResult,
@@ -26,19 +30,6 @@ from repro_torch.kernels.residual_dp.ref import (
 RESIDUAL_DP = _cuda.register(
     "residual_dp", "residual_dp_launch",
     (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR,) * 3)
-
-#: frame slots per lane the kernel is built for (csrc/residual_dp.cu)
-LANE_SLOTS = (1, 2, 4, 6, 8, 16, 32)
-
-
-def lane_slots(cols: int) -> int:
-    """Frame slots each of a warp's 32 lanes owns for a ``cols``-column
-    DP row: the least built value with 32 of them covering the row."""
-    for cpl in LANE_SLOTS:
-        if 32 * cpl >= cols:
-            return cpl
-    raise ValueError(f"a {cols}-column DP row exceeds the warp kernel's "
-                     f"{32 * LANE_SLOTS[-1]} columns")
 
 
 def residual_pair_dp(

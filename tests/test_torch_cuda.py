@@ -73,12 +73,26 @@ def _same(a, b, msg=""):
         assert torch.equal(x.cpu(), y.cpu().to(x.dtype)), f"{f} {msg}"
 
 
-@pytest.mark.parametrize("s,k,seed_len", [(3, 32, 50), (2, 8, 16),
-                                          (1, 4, 64)])
-def test_seed_buckets_matches_plain(dev, s, k, seed_len):
+@pytest.mark.parametrize("s,k,seed_len,b,r,codes,lead", [
+    *(pytest.param(s, k, n, 37, 150, 4, 0, id=f"{s}-{k}-{n}")
+      for s, k, n in ((3, 32, 50), (2, 8, 16), (1, 4, 64))),
+    # odd R (tiles start off a word), codes 0-255 (carries), a batch that
+    # is not a multiple of the 64-row tile, mates starting off 16 bytes
+    (3, 0, 50, 37, 151, 256, 0), (3, 0, 50, 1000, 151, 256, 5),
+    (2, 0, 16, 1000, 151, 256, 3), (1, 0, 64, 37, 151, 256, 0),
+    (3, 0, 50, 1000, 150, 256, 1),
+    # rows too long to stage (read from device memory)
+    (3, 0, 50, 3, 40_000, 256, 1),
+])
+def test_seed_buckets_matches_plain(dev, s, k, seed_len, b, r, codes, lead):
     rng = np.random.default_rng(s)
-    r1 = torch.as_tensor(rng.integers(0, 4, (37, 150), np.uint8), device=dev)
-    r2 = torch.as_tensor(rng.integers(0, 4, (37, 150), np.uint8), device=dev)
+
+    def mate():        # (b, r) contiguous, ``lead`` bytes into its buffer
+        buf = torch.as_tensor(rng.integers(0, codes, b * r + lead, np.uint8),
+                              device=dev)
+        return buf[lead:].view(b, r)
+
+    r1, r2 = mate(), mate()
     got = seed_buckets(r1, r2, seed_len, s, 7, 1 << 16)
     torch.cuda.synchronize()
     want = seed_buckets_ref(torch.cat([r1, r2]), seed_len, s, 7, 1 << 16)
@@ -395,24 +409,40 @@ def test_location_vote_rejects_rows_past_shared_memory(dev):
         location_vote(d, 64, backend="cuda")
 
 
-@pytest.mark.parametrize("band", [0, 16, 40, 278, None])
-def test_banded_sw_matches_plain(dev, band):
+@pytest.mark.parametrize("b,r,w,band", [
+    *(pytest.param(70, 150, 278, band, id=str(band))
+      for band in (0, 16, 40, 278, None)),
+    (2048, 150, 278, 40),              # the long lane's shape (CPL 3)
+    # windows shorter than the read: the centre floors, the first and last
+    # rows' slice start wraps or clamps as repro's does
+    (64, 150, 149, 16), (64, 150, 147, 8), (64, 150, 145, 3),
+    (64, 40, 37, 2), (64, 40, 35, 10),
+    # rows wider than the warp kernel covers: the one-thread kernel
+    (16, 150, 1100, None), (16, 150, 1100, 600),
+    # long reads: 4 warps a block, then staging past 48 KB (one-thread)
+    (8, 5000, 5100, 40), (4, 30_000, 30_100, 40),
+])
+def test_banded_sw_matches_plain(dev, b, r, w, band):
     rng = np.random.default_rng(band or 5)
-    B, R, W = 70, 150, 278
-    win = rng.integers(0, 4, (B, W), np.uint8)
-    read = rng.integers(0, 4, (B, R), np.uint8)
-    for i in range(1, B, 2):                       # copies at many offsets
-        s = int(rng.integers(0, W - R + 1))
-        read[i] = win[i, s:s + R]
-        read[i, 60:62] = (read[i, 60:62] + 1) % 4
-    read[3, :70] = win[3, 60:130]                  # a 3-base deletion
-    read[3, 70:] = win[3, 133:213]
+    win = rng.integers(0, 4, (b, w), np.uint8)
+    read = rng.integers(0, 4, (b, r), np.uint8)
+    m = min(60, r // 2)                            # a 2-base mismatch at m
+    for i in range(1, b, 2):                       # copies at many offsets
+        s = int(rng.integers(0, abs(w - r) + 1))
+        if w >= r:
+            read[i] = win[i, s:s + r]
+        else:
+            read[i, s:s + w] = win[i]
+        read[i, m:m + 2] = (read[i, m:m + 2] + 1) % 4
+    if w >= r + 63:
+        read[3, :70] = win[3, 60:130]              # a 3-base deletion
+        read[3, 70:] = win[3, 133:133 + r - 70]
     t = (lambda x: torch.as_tensor(x, device=dev))
     for sc in (Scoring(), Scoring(match=2, mismatch=3, gap_open=4,
                                   gap_extend=1)):
         got = banded_sw(t(read), t(win), sc, band, backend="cuda")
         want = banded_sw(t(read), t(win), sc, band, backend="torch")
-        _same(got, want, f"band={band} {sc}")
+        _same(got, want, f"b={b} r={r} w={w} band={band} {sc}")
 
 
 @pytest.mark.parametrize("packed", [False, True])

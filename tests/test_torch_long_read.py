@@ -129,24 +129,40 @@ def test_location_vote_edge_rows():
 
 
 # ------------------------------------------------------------ anchor DP ---
-@pytest.mark.parametrize("band", [16, 24, 40, 278, None])
-def test_banded_sw_matches_repro(band):
-    rng = np.random.default_rng(band or 7)
-    B, R, W = 9, 150, 278
-    win = rng.integers(0, 4, (B, W), np.uint8)
-    read = rng.integers(0, 4, (B, R), np.uint8)
-    for i, s in enumerate((64, 64 - 20, 64 + 35, 0, W - R)):
-        read[i] = win[i, s:s + R]                 # on and off the centre
-        read[i, 40:43] = (read[i, 40:43] + 1) % 4
-    read[5, :70] = win[5, 60:130]                 # a 3-base deletion
-    read[5, 70:] = win[5, 133:213]
+@pytest.mark.parametrize("r,w,band", [
+    *(pytest.param(150, 278, b, id=str(b)) for b in (16, 24, 40, 278, None)),
+    # windows shorter than the read: repro clamps some rows' window slice
+    (150, 149, 16), (150, 147, 8), (150, 145, 3), (40, 37, 2), (40, 35, 10),
+])
+def test_banded_sw_matches_repro(r, w, band):
+    """W < R: (150, 149) puts the band centre at floor(-1/2) = -1; the
+    other short windows clamp the slice start of their first (c <= -2)
+    and last (R + c > W + 1) rows, which then score in-band cells against
+    shifted bases."""
+    rng = np.random.default_rng((band or 7) if w > r else r * w + band)
+    B = 9 if w > r else 8
+    win = rng.integers(0, 4, (B, w), np.uint8)
+    read = rng.integers(0, 4, (B, r), np.uint8)
+    if w > r:
+        for i, s in enumerate((64, 64 - 20, 64 + 35, 0, w - r)):
+            read[i] = win[i, s:s + r]             # on and off the centre
+            read[i, 40:43] = (read[i, 40:43] + 1) % 4
+        read[5, :70] = win[5, 60:130]             # a 3-base deletion
+        read[5, 70:] = win[5, 133:213]
+    else:                                         # the window in the read
+        for i, s in enumerate(((r - w + 1) // 2, 0, r - w, 1)):
+            read[i, s:s + w] = win[i]
+            read[i, s + w // 3] = (read[i, s + w // 3] + 1) % 4
+        d = min(2, r - w)                         # a 1- or 2-base insertion
+        read[4, :w // 2] = win[4, :w // 2]
+        read[4, w // 2 + d:w + d] = win[4, w // 2:]
     sc = Scoring(match=2, mismatch=3, gap_open=4, gap_extend=1)
     want = j_banded_sw(jnp.asarray(read), jnp.asarray(win),
                        scoring=JScoring(**dataclasses.asdict(sc)),
                        band=band, backend="jnp")
     got = banded_sw(torch.as_tensor(read), torch.as_tensor(win), scoring=sc,
                     band=band)
-    _assert_same(got, want, f"band={band}")
+    _assert_same(got, want, f"r={r} w={w} band={band}")
 
 
 # ------------------------------------------------------------ front end ---

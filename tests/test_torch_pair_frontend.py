@@ -1,7 +1,8 @@
 """repro_torch's front end (steps 1-3) against repro's on the CPU, exact
 equality: the fused op's plain version over an (S, K, Δ, C) grid with
 negative starts near the origin, all-invalid rows, duplicate-heavy rows
-and candidate overflow; the staged CSR path; the pair-dedup rule."""
+and candidate overflow; the staged CSR path; the pair-dedup rule; numpy
+models of the CUDA kernels' merge block and seed packing."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -9,12 +10,16 @@ import torch
 
 from repro.core import query as jquery
 from repro.core import seeding as jseeding
+from repro.core.hashing import xxhash32_words_np
 from repro.core.pair_filter import paired_adjacency_filter as j_filter
 from repro.core.query import QueryResult as JQueryResult
 from repro.core.seedmap import SeedMapConfig as JSeedMapConfig
 from repro.core.seedmap import build_seedmap as j_build
 from repro.core.simulate import random_reference
 from repro.kernels.pair_frontend import pair_frontend as j_pair_frontend
+from repro.kernels.pair_frontend.ref import (
+    seed_buckets_ref as j_seed_buckets_ref,
+)
 from repro_torch.core import query, seeding
 from repro_torch.core.pair_filter import paired_adjacency_filter
 from repro_torch.core.query import QueryResult
@@ -227,3 +232,70 @@ def test_valid_only_sort_model_matches_repro_block(s, k, delta, c):
         np.testing.assert_array_equal(g, np.asarray(w).reshape(g.shape))
     if c == 1 and delta == 60:
         assert got[2][4] == 1
+
+
+def _seed_words_model(buf, lead, B, R, rows, offs, seed_len):
+    """numpy model of csrc/seed_buckets.cu's staged packing: the (B, R)
+    reads lie at byte ``lead`` of ``buf`` (device memory); a block stages
+    the 16-byte vectors covering its tile of ``rows`` rows (the start
+    aligned down, the head skipped), then each seed takes four bases per
+    aligned 32-bit load (two loads funnel-shifted off a word boundary, only
+    the words that hold a seed byte), masks the bases past the seed, and
+    adds __dp4a(x, 4^m) << 8 (g & 3) into its word, mod 2^32."""
+    S = len(offs)
+    out = np.zeros((B, S, 4), np.uint64)
+    for row0 in range(0, B, rows):
+        n_rows = min(rows, B - row0)
+        a = lead + row0 * R
+        head = a & 15
+        n_vec = (head + n_rows * R + 15) >> 4
+        assert 16 * n_vec <= (rows * R + 30) & ~15     # the launcher's smem
+        staged = buf[a - head:a - head + 16 * n_vec]
+        assert len(staged) == 16 * n_vec
+        words = staged.view("<u4").astype(np.uint64)
+        for r in range(n_rows):
+            for s, off in enumerate(offs):
+                p = head + r * R + off
+                q, sh = p >> 2, 8 * (p & 3)
+                n_words = ((p & 3) + seed_len + 3) >> 2
+                lo = words[q]
+                for g in range(16):
+                    if 4 * g >= seed_len:
+                        break
+                    hi = words[q + g + 1] if g + 1 < n_words else 0
+                    x = ((int(hi) << 32 | int(lo)) >> sh) & 0xFFFFFFFF
+                    lo = hi
+                    if seed_len - 4 * g < 4:
+                        x &= (1 << 8 * (seed_len - 4 * g)) - 1
+                    dp4a = sum((x >> 8 * m & 0xFF) << 2 * m for m in range(4))
+                    w = out[row0 + r, s, g >> 2]
+                    out[row0 + r, s, g >> 2] = \
+                        (int(w) + (dp4a << 8 * (g & 3))) & 0xFFFFFFFF
+    return out.astype(np.uint32)
+
+
+@pytest.mark.parametrize("r", [150, 151, 37])
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_seed_pack_words_model_matches_repro(r, s):
+    """The kernel's word-wise packing of a staged tile equals repro's
+    summed 2-bit packing and, hashed and masked, repro's bucket ids, for
+    any uint8 code (codes > 3 carry into the next base), with each mate's
+    reads starting off a 16-byte boundary, odd R (tiles start off a word)
+    and a batch that is not a multiple of the tile."""
+    rng = np.random.default_rng(r * 10 + s)
+    B, rows, seed_len = 13, 5, min(50, r // s)
+    offs = seeding.seed_offsets_tuple(r, seed_len, s)
+    for lead in (0, 5, 11):
+        reads = rng.integers(0, 256, (B, r), np.uint8)
+        buf = rng.integers(0, 256, lead + B * r + 32, np.uint8)
+        buf[lead:lead + B * r] = reads.reshape(-1)
+        got = _seed_words_model(buf, lead, B, r, rows, offs, seed_len)
+        want = np.asarray(jseeding.pack_seed_words(
+            jseeding.extract_seeds(jnp.asarray(reads), seed_len, s)))
+        np.testing.assert_array_equal(got, want.astype(np.uint32),
+                                      err_msg=f"lead={lead}")
+        ids = (xxhash32_words_np(got, seed=7) & np.uint32((1 << 16) - 1))
+        np.testing.assert_array_equal(
+            ids.astype(np.int32),
+            np.asarray(j_seed_buckets_ref(jnp.asarray(reads), seed_len, s, 7,
+                                          1 << 16)))

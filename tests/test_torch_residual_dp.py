@@ -23,7 +23,8 @@ from repro_torch.core.dp_fallback import (
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import INVALID_LOC
-from repro_torch.kernels.residual_dp.ops import lane_slots, residual_pair_dp
+from repro_torch.kernels._util import lane_slots
+from repro_torch.kernels.residual_dp.ops import residual_pair_dp
 
 L, R = 5000, 100
 FIELDS = ("score1", "ref_end1", "score2", "ref_end2", "dp_lanes")
@@ -127,6 +128,28 @@ def _shfl_up(x, d, fill):
     return out
 
 
+def _row_start(s, W):
+    """csrc/gotoh.cuh's slice start of a banded row whose unclamped start
+    is ``s``: W + 1 where repro's `dynamic_slice_in_dim` wraps or clamps
+    it (a start below -2*band wraps into [0, W + 1], but such a row has no
+    cell in [0, W], so W + 1 serves it as well)."""
+    return W + 1 if s < 0 or s > W + 1 else s
+
+
+def _warp_stage(R, W, band, cpl):
+    """csrc/gotoh.cuh::gotoh_warp_stage: ``(left, bytes)`` of a staged
+    window (W bases from byte ``left``, zero pads around them)."""
+    c = (W - R) // 2
+    if band is None or band >= W:
+        lo, hi = -1, 32 * cpl - 2
+    else:
+        lo = max(c + 1, 0) - band - 1
+        hi = (W + 1 if c + 1 < 0 else min(R + c, W + 1)) - band \
+            + 32 * cpl - 2
+    left = -lo if lo < 0 else 0
+    return left, (left + max(hi + 1, W) + 3) & ~3
+
+
 def _warp_dp_model(read, win, band, sc):
     """numpy model of csrc/gotoh.cuh::gotoh_dp_warp: 32 lanes own CPL
     contiguous frame slots each; neighbours cross a lane edge as one
@@ -134,7 +157,11 @@ def _warp_dp_model(read, win, band, sc):
     inclusive max-scan of the lane totals, then the exclusive shift.  The
     banded rows whose frame lies inside [1, W] skip the column tests and
     leave the slots past the frame unmasked, as the kernel does; the
-    frame's last slot takes NEG from the row above in their place."""
+    frame's last slot takes NEG from the row above in their place.  The
+    window is read from its staged bytes (`_warp_stage`, pads 0) at the
+    kernel's row start (`_row_start`); every index read must fall inside
+    them, and the first and last rows' substitution counts a match only
+    inside [0, W)."""
     B, R = read.shape
     W = win.shape[1]
     full = band is None or band >= W
@@ -149,9 +176,9 @@ def _warp_dp_model(read, win, band, sc):
     H = np.broadcast_to(np.where((k < cols) & (j0 >= 0) & (j0 <= W), 0, NEG),
                         (B, n)).astype(np.int64)
     E = np.full((B, n), NEG, np.int64)
-    win_ext = np.concatenate([win.astype(np.int64),
-                              np.full((B, n + R + W), -1)], 1)
-    rows = np.arange(B)[:, None]
+    left, nbytes = _warp_stage(R, W, None if full else band, cpl)
+    staged = np.zeros((B, nbytes), np.int64)
+    staged[:, left:left + W] = win
     i_head = R if full else min(R, max(0, band - c))
     i_tail = R if full else max(i_head, min(R, W - c - band))
     for i in range(R):
@@ -159,7 +186,9 @@ def _warp_dp_model(read, win, band, sc):
         if full:
             e = np.maximum(H - first, E - ext)
             diag = np.concatenate([np.zeros((B, 1), np.int64), H[:, :-1]], 1)
-            wb = win_ext[rows, np.clip(k - 1, 0, None)]
+            idx = k - 1
+            assert 0 <= left + idx.min() and left + idx.max() < nbytes
+            wb = staged[:, left + idx]
             v = np.maximum(diag + np.where(rb == wb, sc.match, -sc.mismatch),
                            e)
             v[:, 0] = -(op + ext * (i + 1))
@@ -171,15 +200,19 @@ def _warp_dp_model(read, win, band, sc):
             up_e[:, k + 1 >= cols] = NEG
             e = np.maximum(up_h - first, up_e - ext)
             jcol = i + 1 + c - band + k
-            inwin = (jcol >= 1) & (jcol <= W)
-            wb = np.where(inwin, win_ext[rows, np.clip(jcol - 1, 0, None)],
-                          -1)
+            check = not i_head <= i < i_tail
+            idx = (_row_start(i + c + 1, W) if check else i + c + 1) \
+                - band - 1 + k
+            assert 0 <= left + idx.min() and left + idx.max() < nbytes
+            wb = staged[:, left + idx]
+            if check:
+                wb = np.where((idx >= 0) & (idx < W), wb, -1)
             v = np.maximum(H + np.where(rb == wb, sc.match, -sc.mismatch), e)
-            if i_head <= i < i_tail:    # every frame slot in [1, W]; slots
-                valid = np.ones(n, bool)    # past the frame left unmasked
-            else:
+            if check:
                 v[:, jcol == 0] = -(op + ext * (i + 1))
                 valid = (k < cols) & (jcol >= 0) & (jcol <= W)
+            else:                       # every frame slot in [1, W]; slots
+                valid = np.ones(n, bool)    # past the frame left unmasked
         v = np.where(valid, v, NEG)
         E = e
         # the lane-split scan
@@ -203,7 +236,8 @@ def _warp_dp_model(read, win, band, sc):
 
 def _sequential_last_row(read, win, band, sc):
     """The last DP row as csrc/gotoh.cuh::gotoh_dp computes it: the
-    horizontal gap's running max taken slot by slot along each row."""
+    horizontal gap's running max taken slot by slot along each row, the
+    window read at the row start of `_row_start`."""
     B, R = read.shape
     W = win.shape[1]
     full = band is None or band >= W
@@ -223,6 +257,7 @@ def _sequential_last_row(read, win, band, sc):
         E = np.maximum(up_h - first, up_e - ext)
         prev = H.copy()
         gmax = None
+        shift = 0 if full else _row_start(i + c + 1, W) - (i + c + 1)
         for k in range(cols):
             j = k if full else i + 1 + c - band + k
             if full:
@@ -231,7 +266,8 @@ def _sequential_last_row(read, win, band, sc):
                                               sc.match, -sc.mismatch),
                     E[:, k])
             else:
-                wb = wn[:, j - 1] if 1 <= j <= W else -1
+                q = j - 1 + shift
+                wb = wn[:, q] if 1 <= j <= W and 0 <= q < W else -1
                 ht = np.maximum(prev[:, k] + np.where(rd[:, i] == wb,
                                                       sc.match,
                                                       -sc.mismatch), E[:, k])
@@ -255,7 +291,12 @@ LONG_GAP = Scoring(match=2, mismatch=20, gap_open=6, gap_extend=1)
     (6, 150, 182, 2, Scoring()), (6, 150, 182, 24, Scoring()),
     (6, 150, 182, None, Scoring()), (5, 45, 77, 24, LONG_GAP),
     (4, 37, 45, 3, Scoring()), (3, 40, 52, 40, Scoring()),
-    (4, 40, 200, None, LONG_GAP),
+    (4, 40, 200, None, LONG_GAP), (4, 150, 278, 40, Scoring()),
+    # windows shorter than the read: the first and last rows' slice start
+    # wraps or clamps in repro (150, 149 only moves the centre to -1)
+    (4, 150, 149, 16, Scoring()), (4, 150, 147, 8, Scoring()),
+    (4, 150, 145, 3, LONG_GAP), (4, 40, 37, 2, Scoring()),
+    (4, 40, 35, 10, LONG_GAP),
 ])
 def test_warp_scan_model_matches_repro(b, r, w, band, sc):
     """The identities the warp recurrence rests on: lane-split neighbours
@@ -264,21 +305,27 @@ def test_warp_scan_model_matches_repro(b, r, w, band, sc):
     a deletion as long as the band (or the window) allows, so its best
     path takes a horizontal gap across many lanes; in the full DP, row 3
     sits at the window's left edge, so the last row's right end is a gap
-    from there."""
+    from there.  (150, 278, 40) is the long-read lane's 81-column frame
+    (CPL 3); a window shorter than the read lies inside it, on and off
+    the centre."""
     from repro.kernels.banded_sw.kernel import dp_block
     rng = np.random.default_rng(r * w + (band or 0))
     read = rng.integers(0, 4, (b, r), np.uint8)
     win = rng.integers(0, 4, (b, w), np.uint8)
     c = (w - r) // 2
-    win[0, c:c + r] = read[0]                  # an exact placement
-    win[1, c + 2:c + r] = read[1, :r - 2]      # a 2-base shift
-    gap = min(band if band is not None else w, w - r) - 2
-    head = r // 2 if band is not None else 10
-    start = c - gap // 2 if band is not None else 0
-    read[2, :head] = win[2, start:start + head]
-    read[2, head:] = win[2, start + head + gap:start + gap + r]
-    if band is None:        # the last row's gap runs over most lanes
-        win[3, :r] = read[3]
+    if w < r:
+        for i, s in enumerate((-c, 0, r - w)):
+            read[i, s:s + w] = win[i]
+    else:
+        win[0, c:c + r] = read[0]                  # an exact placement
+        win[1, c + 2:c + r] = read[1, :r - 2]      # a 2-base shift
+        gap = min(band if band is not None else w, w - r) - 2
+        head = r // 2 if band is not None else 10
+        start = c - gap // 2 if band is not None else 0
+        read[2, :head] = win[2, start:start + head]
+        read[2, head:] = win[2, start + head + gap:start + gap + r]
+        if band is None:    # the last row's gap runs over most lanes
+            win[3, :r] = read[3]
     jsc = JScoring(**dataclasses.asdict(sc))
     score, end, last = _warp_dp_model(read, win, band, sc)
     if sc == LONG_GAP:      # every cell of the last row, gaps included
@@ -295,7 +342,7 @@ def test_warp_scan_model_matches_repro(b, r, w, band, sc):
 
 
 def test_lane_slots_cover_the_row():
-    assert [lane_slots(c) for c in (1, 32, 33, 49, 183, 263, 1024)] == \
-        [1, 1, 2, 2, 6, 16, 32]
+    assert [lane_slots(c) for c in (1, 32, 33, 49, 65, 81, 97, 183, 263,
+                                    1024)] == [1, 1, 2, 2, 3, 3, 4, 6, 16, 32]
     with pytest.raises(ValueError, match="1024 columns"):
         lane_slots(1025)
