@@ -54,15 +54,22 @@ Phases (any failure exits non-zero; nothing is caught):
      (h = M, merge_filter on the same rows gathered), each timed apart,
      and the number of alignments candidate_align ran against the bound's
      count), the
-     long-read batch's diagonal rows and anchor windows (extra checks:
-     synthetic vote rows, bands 16 and >= W, windows shorter than the
-     read and rows wider than the warp kernel covers), the sharded plan's
-     gathered (B, S, K) locations of the pair batch (extra check: 4,096
-     synthetic rows) and phase 2d's inputs of the building blocks (extra
-     checks: xxhash32 of one row under seeds 0, 99 and 0xFFFFFFFF;
-     light_align in paper mode, at E 0 and 2, on int32 bases and on one
-     row; seed_gather of a float32 table, of 30-wide rows and of ids
-     outside the table); flash_attention at the prefill's shapes (BH 256,
+     long-read batch's diagonal rows and anchor windows (the mean and
+     largest count h of valid slots a vote row holds; extra checks:
+     synthetic vote rows 60 % valid, timed apart as `dense_ms`, the
+     lane's rows 4 bytes off a 16-byte boundary, timed apart as
+     `unaligned_device_ms`, rows of 257, 33, 4,096 and 12,288 slots,
+     bands 16 and >= W, windows shorter than the read and rows wider than
+     the warp kernel covers), the sharded plan's gathered (B, S, K)
+     locations of the pair batch (extra check: 4,096 synthetic rows) and
+     phase 2d's inputs of the building blocks (extra checks: xxhash32 of
+     one row under seeds 0, 99 and 0xFFFFFFFF; light_align in paper mode,
+     at E 0, 1 and 2, on int32 bases, on one row, at R 700 and 1,000
+     (E 8) and R = E + 2, on tandem repeats, all-mismatch rows and codes
+     0-255 in uint8 and int32; seed_gather of a float32 table, of
+     30-wide rows and of ids outside the table; the vote rows of 257 to
+     12,288 slots and light_align's synthetic rows run after the last
+     timed reading); flash_attention at the prefill's shapes (BH 256,
      S 2,048, D 128, bf16, causal, K/V head h // 8; extra checks: float32,
      S 2,000 padded, causal=False, D 80 and 64); exact equality (flash:
      3e-2 in bf16, 1e-4 in float32), timed with CUDA events (`ms`) and
@@ -1080,7 +1087,52 @@ def main() -> int:
     compare("location_vote",
             lambda: location_vote(synth, lr.vote_bin, backend="cuda"),
             lambda: location_vote(synth, lr.vote_bin, backend="torch"),
-            0, 0, timed=False)
+            0, 0, timed=False, case="4,096 synthetic rows, 60 % valid")
+    kernels["location_vote"]["dense_ms"] = time_ms(
+        lambda: location_vote(synth, lr.vote_bin, backend="cuda"), 20)
+    kernels["location_vote"]["dense_device_ms"] = device_ms(
+        lambda: location_vote(synth, lr.vote_bin, backend="cuda"))
+    h_lane = (diag != INVALID_LOC).sum(1).float()
+    record["location_vote_h"] = {"mean": float(h_lane.mean()),
+                                 "max": int(h_lane.max())}
+    print(f"[3] location_vote: the lane's {Bl} rows of {Ml} slots hold "
+          f"h = {float(h_lane.mean()):.2f} valid slots on average, "
+          f"{int(h_lane.max())} at most; {synth.shape[0]} synthetic rows "
+          f"60 % valid: {kernels['location_vote']['dense_ms']:.4f} ms, "
+          f"{kernels['location_vote']['dense_device_ms']:.4f} ms of device "
+          f"time")
+    # the lane's rows 4 bytes off a 16-byte boundary
+    off = torch.empty(Bl * Ml + 1, dtype=torch.int32, device=dev)[1:]
+    off = off.view(Bl, Ml)
+    off.copy_(diag)
+    compare("location_vote",
+            lambda: location_vote(off, lr.vote_bin, backend="cuda"),
+            lambda: location_vote(off, lr.vote_bin, backend="torch"),
+            0, 0, timed=False, case="lane rows 4 bytes off")
+    kernels["location_vote"]["unaligned_device_ms"] = device_ms(
+        lambda: location_vote(off, lr.vote_bin, backend="cuda"))
+    print(f"[3] location_vote: the lane's rows 4 bytes off: "
+          f"{kernels['location_vote']['unaligned_device_ms']:.4f} ms of "
+          f"device time")
+    del off
+
+    def location_vote_edges():
+        # rows not a multiple of 4 slots, and wide rows (a block holds
+        # fewer reads: one at 12,288 slots)
+        g = torch.Generator(device=dev).manual_seed(SEED + 8)
+        for m_s, n_s in ((257, 2048), (33, 2048), (4096, 512),
+                         (12_288, 256)):
+            rows_s = torch.randint(-400, 4000, (n_s, m_s), generator=g,
+                                   device=dev, dtype=torch.int32)
+            rows_s[torch.rand(rows_s.shape, generator=g,
+                              device=dev) < 0.4] = INVALID_LOC
+            compare("location_vote",
+                    lambda x=rows_s: location_vote(x, lr.vote_bin,
+                                                   backend="cuda"),
+                    lambda x=rows_s: location_vote(x, lr.vote_bin,
+                                                   backend="torch"),
+                    0, 0, timed=False,
+                    case=f"M {m_s}, {n_s} rows, 60 % valid")
     vote = location_vote(diag, lr.vote_bin, backend="cuda")
     syn = location_vote(synth, lr.vote_bin, backend="cuda")
     if syn.win_bin[1:3].tolist() != [1, -1] or int(syn.votes[0]) != 0:
@@ -1186,15 +1238,21 @@ def main() -> int:
             0, 0, timed=False, case="every slot valid")
     del dense_rows, dense_locs
 
-    # kernel 8: light_align of phase 2d's mates (the function's own work:
-    # (2E+1) shifted passes of ~6 integer operations per base, as
-    # candidate_align's), then paper mode, E 0 and 2 (the centre of each
-    # window), int32 bases and one row
+    # kernel 8: light_align of phase 2d's mates, then paper mode, E 0, 1
+    # and 2 (the centre of each window), int32 bases and one row.  The
+    # function's own work, counted at four bases a 32-bit word: 2E+1
+    # mismatch masks (a shift's four flags take a funnel shift, xor, and,
+    # add, or, and, mul, shr, shl and or: 10 operations) and 2E gap walks
+    # (a nibble of four positions through the table, ~7), so 2.5 and
+    # 1.75 operations a base.  A byte compare a base is not the work's
+    # floor once four share an instruction; the bytes bound (each row
+    # and window read once) takes over wherever it is the larger.
     Nla = la_reads.shape[0]
     m = pipe.light_mode
     cases = ((E, m, torch.uint8, Nla), (E, "paper", torch.uint8, Nla),
-             (0, m, torch.uint8, Nla), (2, m, torch.uint8, Nla),
-             (E, m, torch.int32, Nla), (E, m, torch.uint8, 1))
+             (0, m, torch.uint8, Nla), (1, m, torch.uint8, Nla),
+             (2, m, torch.uint8, Nla), (E, m, torch.int32, Nla),
+             (E, m, torch.uint8, 1))
     for i, (e, mode, dtype, n) in enumerate(cases):
         args = (la_reads[:n].to(dtype),
                 la_wins[:n, E - e:E + R + e].contiguous().to(dtype), e)
@@ -1203,7 +1261,47 @@ def main() -> int:
                 lambda a=args, k=kw: light_align(*a, backend="cuda", **k),
                 lambda a=args, k=kw: light_align(*a, backend="torch", **k),
                 n_bytes=Nla * (R + R + 2 * E) + Nla * 5 * 4,
-                n_ops=Nla * R * (2 * E + 1) * 6, timed=i == 0)
+                n_ops=Nla * R * ((2 * E + 1) * 2.5 + 2 * E * 1.75),
+                timed=i == 0,
+                case=f"E {e}, {mode}, {dtype}, {n} rows")
+
+    def light_align_edges():
+        # synthetic rows (half of them exact copies of their window's
+        # centre): R 700 and 1,000 at E 8 (32 lanes a row), R = E + 2,
+        # tandem repeats (ACAC... against the repeat shifted by 0 or 1:
+        # the arg-min ties on many splits), all-mismatch rows, codes 0-255
+        # in uint8 and int32
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+        def la_rows(n, r, e, codes=4):
+            rd = torch.randint(0, codes, (n, r), generator=g, device=dev,
+                               dtype=torch.uint8)
+            wn = torch.randint(0, codes, (n, r + 2 * e), generator=g,
+                               device=dev, dtype=torch.uint8)
+            wn[:n // 2, e:e + r] = rd[:n // 2]
+            return rd, wn
+
+        tandem_w = (torch.arange(R + 2 * E, device=dev) + torch.randint(
+            0, 2, (Nla, 1), generator=g, device=dev)) % 2
+        codes = la_rows(Nla, R, E, 256)
+        for case, (rd, wn, e) in (
+                ("R 700, E 8", (*la_rows(8192, 700, 8), 8)),
+                ("R 1000, E 8", (*la_rows(8192, 1000, 8), 8)),
+                ("R 10 = E + 2", (*la_rows(Nla, 10, 8), 8)),
+                ("tandem repeats", (
+                    (torch.arange(R, device=dev) % 2).expand(Nla, R).to(
+                        torch.uint8), tandem_w.to(torch.uint8), E)),
+                ("all mismatch", (torch.ones_like(la_reads),
+                                  torch.full_like(la_wins, 3), E)),
+                ("codes 0-255, uint8", (*codes, E)),
+                ("codes 0-255, int32", (codes[0].int(), codes[1].int(), E))):
+            for mode in (m, "paper"):
+                compare("light_align",
+                        lambda a=(rd, wn, e), md=mode: light_align(
+                            *a, mode=md, backend="cuda"),
+                        lambda a=(rd, wn, e), md=mode: light_align(
+                            *a, mode=md, backend="torch"),
+                        0, 0, timed=False, case=f"{case}, {mode}")
 
     # kernel 9: xxhash32 of phase 2d's seed words (each hash ~51 integer
     # operations of xxhash.cuh, 16 bytes in and an int64 out), then one row
@@ -1288,6 +1386,12 @@ def main() -> int:
                 ops_per_s=BF16_FLOPS_PER_S, timed=timed, library=sdpa,
                 tol=1e-4 if dtype == torch.float32 else 3e-2, case=case)
         del fq, fk, fv
+    torch.cuda.empty_cache()
+
+    # the edge cases of location_vote and light_align, untimed, after the
+    # last timed reading so their large rows never run between two
+    location_vote_edges()
+    light_align_edges()
     torch.cuda.empty_cache()
 
     # ---- 4. whole step against the plain-backend Mapper --------------------

@@ -12,17 +12,29 @@
 // Bound on the H100: 4*M bytes in and 8 bytes out per read, and the
 // O(M log M) sort the function needs; at M = 256 both are far below a
 // microsecond for 2,048 reads, so launch latency bounds it.  Design: one
-// block per read loads its row's bins into shared memory; each thread
-// counts its slots' multiplicities with an all-pairs scan (broadcast
-// shared reads, M^2 / threads compares each, like the TPU kernel's
-// all-pairs count); a warp-shuffle then block reduction keeps the larger
-// count and, on a tie, the smaller bin.  The TPU kernel's `did` output and
-// DMA row table served its ping-pong protocol and have no counterpart.
+// warp per read, up to 8 reads a block.  A row is mostly INVALID_LOC (a
+// long read from a unique locus leaves about one candidate per
+// pseudo-pair), so the warp reads its row (16-byte loads where the rows
+// are 16-byte aligned, else one int per lane; no load leaves the tensor),
+// floors the valid diagonals in registers and compacts their h bins into
+// its slice of shared memory (ballot + popcount ranks).  Each lane then
+// counts its compacted slots against the h bins only (h^2 / 32 compares,
+// four bins per shared-memory load, broadcast to the warp), and a 5-step
+// shuffle keeps the larger count and, on a tie, the smaller bin.  Only
+// __syncwarp orders the warp's slice: no block barrier.  The TPU kernel's
+// `did` output and DMA row table served its ping-pong protocol and have no
+// counterpart.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 using repro::INVALID_LOC;
+
+constexpr int MAX_WARPS = 8;              // reads a block
+constexpr int MAX_SHARED = 48 * 1024;     // bytes of a block's slices
+constexpr unsigned ALL = 0xffffffffu;
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   const int q = a / b;
@@ -38,65 +50,104 @@ __device__ __forceinline__ void take_better(int& votes, int& bin, int v,
   }
 }
 
-__device__ __forceinline__ void warp_best(int& votes, int& bin) {
-  for (int s = 16; s > 0; s >>= 1) {
-    const int v = __shfl_down_sync(0xffffffffu, votes, s);
-    const int b = __shfl_down_sync(0xffffffffu, bin, s);
-    take_better(votes, bin, v, b);
-  }
+// One slot per lane: a valid diagonal's bin goes to the next free place
+// of the warp's compacted bins (lanes in order), h counts them.
+__device__ __forceinline__ void compact(int d, int vote_bin, int* bins,
+                                        int& h, unsigned below) {
+  const bool valid = d != INVALID_LOC;
+  const unsigned vb = __ballot_sync(ALL, valid);
+  if (valid) bins[h + __popc(vb & below)] = floor_div(d, vote_bin);
+  h += __popc(vb);
 }
 
-__global__ void location_vote_kernel(const int* __restrict__ diag, int M,
-                                     int vote_bin, int* __restrict__ win_bin,
-                                     int* __restrict__ votes_out) {
-  extern __shared__ int bins[];  // (M,) bins; INVALID_LOC: invalid slot
-  __shared__ int warp_votes[32], warp_bin[32];
-  const int* row = diag + static_cast<long long>(blockIdx.x) * M;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int d = row[i];
-    bins[i] = d == INVALID_LOC ? INVALID_LOC : floor_div(d, vote_bin);
+// One warp per read.  VEC: M % 4 == 0 and the rows 16-byte aligned.
+// `slice`: ints of shared memory a warp holds (M rounded up to 4).
+template <bool VEC>
+__global__ void __launch_bounds__(32 * MAX_WARPS) location_vote_kernel(
+    const int* __restrict__ diag, int B, int M, int slice, int vote_bin,
+    int* __restrict__ win_bin, int* __restrict__ votes_out) {
+  extern __shared__ int4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long read =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (read >= B) return;                   // the whole warp leaves
+  int* bins = reinterpret_cast<int*>(smem) + warp * slice;
+  const int* row = diag + read * M;
+  const unsigned below = (1u << lane) - 1u;
+
+  int h = 0;
+  if constexpr (VEC) {
+    const int4* row4 = reinterpret_cast<const int4*>(row);
+    const int n_vec = M >> 2;
+    for (int v0 = 0; v0 < n_vec; v0 += 32) {
+      const int v = v0 + lane;
+      const int4 x = v < n_vec ? __ldg(row4 + v)
+                               : make_int4(INVALID_LOC, INVALID_LOC,
+                                           INVALID_LOC, INVALID_LOC);
+      compact(x.x, vote_bin, bins, h, below);
+      compact(x.y, vote_bin, bins, h, below);
+      compact(x.z, vote_bin, bins, h, below);
+      compact(x.w, vote_bin, bins, h, below);
+    }
+  } else {
+    for (int s0 = 0; s0 < M; s0 += 32) {
+      const int s = s0 + lane;
+      compact(s < M ? __ldg(row + s) : INVALID_LOC, vote_bin, bins, h,
+              below);
+    }
   }
-  __syncthreads();
+  // pad the bins to a multiple of 4 with INVALID_LOC, which no bin equals
+  const int h4 = (h + 3) & ~3;
+  if (h + lane < h4) bins[h + lane] = INVALID_LOC;
+  __syncwarp();
 
   int votes = 0, bin = INVALID_LOC;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int b = bins[i];
-    if (b == INVALID_LOC) continue;
+  const int4* bins4 = reinterpret_cast<const int4*>(bins);
+  for (int s = lane; s < h; s += 32) {
+    const int b = bins[s];
     int c = 0;
-    for (int j = 0; j < M; ++j) c += bins[j] == b;
+    for (int j = 0; j < h4 >> 2; ++j) {
+      const int4 q = bins4[j];
+      c += (q.x == b) + (q.y == b) + (q.z == b) + (q.w == b);
+    }
     take_better(votes, bin, c, b);
   }
-  warp_best(votes, bin);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_votes[warp] = votes;
-    warp_bin[warp] = bin;
+  for (int s = 16; s > 0; s >>= 1) {
+    const int v = __shfl_down_sync(ALL, votes, s);
+    const int b = __shfl_down_sync(ALL, bin, s);
+    take_better(votes, bin, v, b);
   }
-  __syncthreads();
-  if (warp == 0) {
-    const bool live = lane < static_cast<int>(blockDim.x >> 5);
-    votes = live ? warp_votes[lane] : 0;
-    bin = live ? warp_bin[lane] : INVALID_LOC;
-    warp_best(votes, bin);
-    if (lane == 0) {
-      win_bin[blockIdx.x] = votes > 0 ? bin : 0;
-      votes_out[blockIdx.x] = votes;
-    }
+  if (lane == 0) {
+    win_bin[read] = votes > 0 ? bin : 0;
+    votes_out[read] = votes;
   }
 }
 
 }  // namespace
 
-// diag: (B, M) int32; win_bin, votes: (B,) int32.  threads: a multiple of
-// 32, at most 1024; M * 4 bytes of shared memory per block.
+// diag: (B, M) int32, M <= 12,288; win_bin, votes: (B,) int32.  Up to 8
+// reads a block, fewer where their slices of round_up(M, 4) ints pass
+// 48 KB (one read a block at M = 12,288).
 extern "C" int location_vote_launch(const void* diag, int B, int M,
-                                    int vote_bin, int threads, void* win_bin,
-                                    void* votes, void* stream) {
+                                    int vote_bin, void* win_bin, void* votes,
+                                    void* stream) {
   if (B == 0) return 0;
-  const size_t smem = static_cast<size_t>(M) * sizeof(int);
-  location_vote_kernel<<<B, threads, smem, static_cast<cudaStream_t>(
-                                               stream)>>>(
-      static_cast<const int*>(diag), M, vote_bin, static_cast<int*>(win_bin),
-      static_cast<int*>(votes));
+  const int slice = (M + 3) & ~3;
+  const int warps = std::max(
+      1, std::min(MAX_WARPS, MAX_SHARED / (4 * std::max(slice, 4))));
+  const unsigned blocks = static_cast<unsigned>((B + warps - 1) / warps);
+  const size_t smem = static_cast<size_t>(warps) * slice * sizeof(int);
+  const bool vec =
+      M % 4 == 0 && (reinterpret_cast<uintptr_t>(diag) & 15) == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto d = static_cast<const int*>(diag);
+  auto wb = static_cast<int*>(win_bin);
+  auto vo = static_cast<int*>(votes);
+  if (vec)
+    location_vote_kernel<true><<<blocks, 32 * warps, smem, s>>>(
+        d, B, M, slice, vote_bin, wb, vo);
+  else
+    location_vote_kernel<false><<<blocks, 32 * warps, smem, s>>>(
+        d, B, M, slice, vote_bin, wb, vo);
   return repro::launch_status();
 }

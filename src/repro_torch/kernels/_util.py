@@ -2,8 +2,9 @@
 residual_dp): both read a contiguous window of a padded reference, so
 their starts are clamped by one shared rule per reference flavor
 (`window_starts`; the candidate_align kernel applies it itself).  Also
-the staged row stride of the Light Alignment kernels, and the frame
-slots per lane of the warp DP kernels (residual_dp and banded_sw)."""
+the stride of candidate_align's staged Light Alignment rows, and the
+frame slots per lane of the warp DP kernels (residual_dp and banded_sw).
+"""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -79,9 +80,9 @@ def clamp_window_starts(pos: torch.Tensor, valid: torch.Tensor, ref_len: int,
 
 
 def staged_stride(n: int) -> int:
-    """Bytes of one row staged in shared memory by the Light Alignment
-    kernels: whole 4-byte words, an odd number of them (a warp's 32 rows
-    then fall in 32 banks)."""
+    """Bytes of one row staged in shared memory by candidate_align (one
+    thread a row): whole 4-byte words, an odd number of them (a warp's 32
+    rows then fall in 32 banks)."""
     return 4 * (((n + 3) // 4) | 1)
 
 

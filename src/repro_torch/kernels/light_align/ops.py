@@ -1,8 +1,9 @@
 """Public wrapper of the standalone Light Alignment op (a building block).
 
 On CUDA tensors `light_align` launches the `light_align` kernel, which
-runs the alignment unit `candidate_align` runs (csrc/light_align.cuh) on
-gathered windows; on CPU tensors (or with ``backend="torch"``) it runs the
+runs the lane-split unit of csrc/light_align.cuh (L lanes a row, the
+function `candidate_align`'s one-thread unit computes) on gathered
+windows; on CPU tensors (or with ``backend="torch"``) it runs the
 plain version.  Reads and windows are compared as values, as repro
 compares them in int32: the kernel takes uint8 bases, so an int32 input is
 narrowed only when every value lies in [0, 255], and refused otherwise.
@@ -15,15 +16,14 @@ from repro_torch.core.light_align import LightAlignResult
 from repro_torch.core.scoring import Scoring
 from repro_torch.kernels import _cuda
 from repro_torch.kernels._cuda import INT, PTR
-from repro_torch.kernels._util import staged_stride
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.light_align.ref import light_align_ref
 
 LIGHT_ALIGN = _cuda.register(
-    "light_align", "light_align_launch", (PTR, PTR) + (INT,) * 11 + (PTR, PTR))
+    "light_align", "light_align_launch", (PTR, PTR) + (INT,) * 8 + (PTR, PTR))
 
-MAX_SHARED = 48 * 1024
-MAX_THREADS = 128
+# positions a warp holds: 32 lanes of at most 32 (the lanes' bitmasks)
+MAX_READ = 1024
 
 
 def _bases(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -55,19 +55,17 @@ def light_align(read: torch.Tensor, refwin: torch.Tensor, max_gap: int,
     W = R + 2 * E
     if R < E + 2:
         raise ValueError(f"light_align needs R >= E + 2 (R={R}, E={E})")
+    if R > MAX_READ:
+        raise ValueError(f"a {R}-base read exceeds the {MAX_READ} positions "
+                         f"one warp of the kernel holds")
     if threshold is None:
         threshold = scoring.default_threshold(R)
-    sr, sw = staged_stride(R), staged_stride(W)
-    threads = min(MAX_THREADS, MAX_SHARED // (sr + sw) // 32 * 32)
-    if threads == 0:
-        raise ValueError(f"32 rows of {R} + {W} bases exceed the kernel's "
-                         f"{MAX_SHARED}-byte shared memory")
     reads = _bases(read, "read")
     wins = _bases(refwin, "refwin")
     _cuda.check(reads, "read", torch.uint8)
     _cuda.check(wins, "refwin", torch.uint8, (B, W))
     out = torch.empty((5, B), dtype=torch.int32, device=read.device)
-    LIGHT_ALIGN(reads.data_ptr(), wins.data_ptr(), B, R, E, sr, sw, threads,
+    LIGHT_ALIGN(reads.data_ptr(), wins.data_ptr(), B, R, E,
                 int(mode == "paper"), scoring.match, scoring.mismatch,
                 scoring.gap_open, scoring.gap_extend, out.data_ptr(),
                 _cuda.stream_of(read))

@@ -1,7 +1,7 @@
 """Public wrapper of the Location Voting reduction (§4.7).
 
 On CUDA tensors `location_vote` launches the `location_vote` kernel (one
-block per read); on CPU tensors (or with ``backend="torch"``) it runs the
+warp per read); on CPU tensors (or with ``backend="torch"``) it runs the
 plain version in `ref.py`.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.kernels.location_vote.ref import (
 
 LOCATION_VOTE = _cuda.register(
     "location_vote", "location_vote_launch",
-    (PTR, INT, INT, INT, INT, PTR, PTR, PTR))
+    (PTR, INT, INT, INT, PTR, PTR, PTR))
 
 MAX_SHARED = 48 * 1024
 
@@ -34,13 +34,11 @@ def location_vote(diag: torch.Tensor, vote_bin: int,
         return location_vote_ref(diag, vote_bin)
     B, M = diag.shape
     _cuda.check(diag, "diag", torch.int32)
-    if M * 4 > MAX_SHARED:
+    if -(-M // 4) * 16 > MAX_SHARED:
         raise ValueError(f"a {M}-slot diagonal row exceeds the kernel's "
                          f"{MAX_SHARED}-byte shared memory")
-    threads = min(256, max(32, -(-M // 32) * 32))
     win_bin, votes = (torch.empty(B, dtype=torch.int32, device=diag.device)
                       for _ in range(2))
-    LOCATION_VOTE(diag.data_ptr(), B, M, vote_bin, threads,
-                  win_bin.data_ptr(), votes.data_ptr(),
-                  _cuda.stream_of(diag))
+    LOCATION_VOTE(diag.data_ptr(), B, M, vote_bin, win_bin.data_ptr(),
+                  votes.data_ptr(), _cuda.stream_of(diag))
     return VoteResult(win_bin=win_bin, votes=votes)

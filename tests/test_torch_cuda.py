@@ -382,7 +382,8 @@ LM_KERNELS = ("flash_attention",)
 
 
 @pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (256, 64),
-                                        (256, 1), (1000, 32)])
+                                        (256, 1), (1000, 32), (257, 64),
+                                        (4096, 64), (12_288, 64)])
 def test_location_vote_matches_plain(dev, M, vote_bin):
     rng = np.random.default_rng(M + vote_bin)
     diag = rng.integers(-400, 4000, (50, M)).astype(np.int32)
@@ -401,6 +402,20 @@ def test_location_vote_matches_plain(dev, M, vote_bin):
     if vote_bin == 64:
         assert got.win_bin[1].item() == 1 and got.votes[1].item() == 2
         assert got.win_bin[2].item() == -1 and got.votes[2].item() == 3
+    # rows 60 % valid, a row whose valid slots all share one bin, and the
+    # same rows 4 bytes into their buffer (16-byte loads off, scalar on)
+    dense = rng.integers(-400, 4000, (40, M)).astype(np.int32)
+    dense[rng.random((40, M)) >= 0.6] = INVALID_LOC
+    dense[0] = np.where(dense[0] == INVALID_LOC, INVALID_LOC,
+                        vote_bin * 7 + rng.integers(0, vote_bin, M))
+    buf = torch.as_tensor(np.concatenate([np.zeros(1, np.int32),
+                                          dense.reshape(-1)]), device=dev)
+    for d in (torch.as_tensor(dense, device=dev), buf[1:].view(40, M)):
+        got = location_vote(d, vote_bin, backend="cuda")
+        _same(got, location_vote(d, vote_bin, backend="torch"),
+              f"60 % valid M={M}")
+        assert got.win_bin[0].item() == 7
+        assert got.votes[0].item() == int((dense[0] != INVALID_LOC).sum())
 
 
 def test_location_vote_rejects_rows_past_shared_memory(dev):
@@ -699,7 +714,9 @@ def _la_world(dev, b, r, e, seed):
 
 @pytest.mark.parametrize("b,r,e", [(8, 150, 8), (33, 150, 4), (64, 100, 8),
                                     (300, 150, 2), (16, 64, 6), (3, 20, 0),
-                                    (1, 150, 8), (77, 700, 8)])
+                                    (1, 150, 8), (77, 700, 8), (90, 150, 1),
+                                    (70, 10, 8), (40, 1000, 8),
+                                    (9, 300, 120)])
 @pytest.mark.parametrize("mode", ["minsplit", "paper"])
 def test_light_align_matches_plain(dev, b, r, e, mode):
     read, win = _la_world(dev, b, r, e, b * 1000 + r + e)
@@ -713,6 +730,24 @@ def test_light_align_matches_plain(dev, b, r, e, mode):
                       backend="cuda"),
           light_align(read, win, e, sc, threshold=40, mode=mode,
                       backend="torch"), f"scoring {sc}")
+    # tandem repeats (ACAC... against the repeat shifted by 0 or 1: the
+    # arg-min ties on many splits), all-mismatch rows, codes 0-255
+    rng = np.random.default_rng(r + e)
+    q = max(b // 3, 1)
+    tr = np.arange(r) % 2
+    tw = (np.arange(r + 2 * e) + rng.integers(0, 2, (q, 1))) % 2
+    codes_r = rng.integers(0, 256, (q, r))
+    codes_w = rng.integers(0, 256, (q, r + 2 * e))
+    codes_w[::2, e:e + r] = codes_r[::2]
+    edge_r = np.concatenate([np.broadcast_to(tr, (q, r)),
+                             np.ones((q, r), np.int64), codes_r])
+    edge_w = np.concatenate([tw, np.full((q, r + 2 * e), 3), codes_w])
+    for dtype in (torch.uint8, torch.int32):
+        er = torch.as_tensor(edge_r, device=dev).to(dtype)
+        ew = torch.as_tensor(edge_w, device=dev).to(dtype)
+        _same(light_align(er, ew, e, mode=mode, backend="cuda"),
+              light_align(er, ew, e, mode=mode, backend="torch"),
+              f"edge rows {dtype}")
 
 
 def test_light_align_refuses_int32_bases_outside_uint8(dev):
@@ -731,8 +766,8 @@ def test_light_align_refuses_int32_bases_outside_uint8(dev):
 
 
 def test_light_align_rejects_rows_past_shared_memory(dev):
-    read, win = _la_world(dev, 4, 1000, 8, 0)
-    with pytest.raises(ValueError, match="shared memory"):
+    read, win = _la_world(dev, 4, 1025, 8, 0)
+    with pytest.raises(ValueError, match="1024 positions"):
         light_align(read, win, 8, backend="cuda")
 
 

@@ -128,6 +128,103 @@ def test_location_vote_edge_rows():
         location_vote(diag, 0)
 
 
+def _c_floor_div(a: int, b: int) -> int:
+    """csrc/location_vote.cu's floor_div: C++ `/` and `%` truncate."""
+    q = abs(a) // b * (1 if a >= 0 else -1)
+    return q - 1 if a - q * b != 0 and a < 0 else q
+
+
+def _warp_vote_model(diag, vote_bin, vec, larger_bin=False):
+    """numpy model of csrc/location_vote.cu, one warp per row: 32 lanes
+    read the row (``vec``: 4-int vectors, lane l holding slots 4v .. 4v+3
+    of vector v = v0 + l; else one slot a lane), each compact() call
+    appends the valid slots' floored bins in lane order (ballot + popcount
+    ranks), the bins are padded to a multiple of 4 with INVALID_LOC, lane
+    l counts its compacted slots l, l+32, ... against all of them and
+    keeps the larger count (a tie: the smaller bin), and a 5-step
+    shuffle-down tree reduces the lanes the same way.  ``larger_bin``
+    flips the tie rule (a mutation the test shows is caught)."""
+    B, M = diag.shape
+
+    def better(v, b, votes, bin_):
+        tie = b > bin_ if larger_bin else b < bin_
+        return v > votes or (v == votes and tie)
+
+    out_bin, out_votes = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for r in range(B):
+        row = [int(x) for x in diag[r]]
+        bins = []
+
+        def compact(vals):               # one slot per lane, lanes in order
+            for d in vals:
+                if d != INVALID_LOC:
+                    bins.append(_c_floor_div(d, vote_bin))
+
+        if vec:
+            n_vec = M // 4
+            for v0 in range(0, n_vec, 32):
+                lanes = [row[4 * v:4 * v + 4] if v < n_vec
+                         else [INVALID_LOC] * 4
+                         for v in range(v0, v0 + 32)]
+                for c in range(4):
+                    compact([x[c] for x in lanes])
+        else:
+            for s0 in range(0, M, 32):
+                compact([row[s] if s < M else INVALID_LOC
+                         for s in range(s0, s0 + 32)])
+        h = len(bins)
+        padded = bins + [INVALID_LOC] * (-h % 4)
+        votes, bin_ = [0] * 32, [INVALID_LOC] * 32
+        for lane in range(32):
+            for s in range(lane, h, 32):
+                c = sum(x == bins[s] for x in padded)
+                if better(c, bins[s], votes[lane], bin_[lane]):
+                    votes[lane], bin_[lane] = c, bins[s]
+        for step in (16, 8, 4, 2, 1):
+            src_v, src_b = votes[:], bin_[:]      # __shfl_down_sync reads
+            for lane in range(32):
+                j = lane + step if lane + step < 32 else lane
+                if better(src_v[j], src_b[j], votes[lane], bin_[lane]):
+                    votes[lane], bin_[lane] = src_v[j], src_b[j]
+        out_votes[r] = votes[0]
+        out_bin[r] = bin_[0] if votes[0] > 0 else 0
+    return out_bin, out_votes
+
+
+@pytest.mark.parametrize("M,vote_bin", [(6, 64), (33, 128), (100, 64),
+                                        (256, 64), (257, 1), (64, 32)])
+def test_warp_vote_model_matches_repro(M, vote_bin):
+    """The warp design (compacted bins, per-lane counts over h, the shuffle
+    tree) equals repro's `location_vote_ref` and its interpret kernel, with
+    h = 0, 1, 32 and M, ties, the floored bin -1, far-negative diagonals,
+    and M not a multiple of 4 or 32; with the tie rule turned to "larger
+    bin" the model no longer does."""
+    rng = np.random.default_rng(7 * M + vote_bin)
+    diag = _diags(14, M, seed=M * vote_bin)
+    diag[3] = INVALID_LOC
+    diag[3, M // 2] = 130                                   # h = 1
+    diag[4] = INVALID_LOC
+    diag[4, :min(32, M)] = rng.integers(-300, 300, min(32, M))   # h = 32
+    diag[5] = rng.integers(-300, 3000, M)                   # h = M
+    diag[6] = rng.integers(-(2**31), -(2**31) + 4096, M)    # far negative
+    diag[7] = INVALID_LOC                                   # one bin, h = M/2
+    diag[7, ::2] = vote_bin * 3 + rng.integers(0, vote_bin, len(diag[7, ::2]))
+    diag[8, :] = np.where(rng.random(M) < 0.6, rng.integers(0, 9, M) *
+                          vote_bin, INVALID_LOC)            # many ties
+    want = j_vote_ref(jnp.asarray(diag), vote_bin)
+    _assert_same(j_location_vote(jnp.asarray(diag), vote_bin, block=8,
+                                 backend="interpret"), want,
+                 "repro kernel vs repro ref")
+    h = (diag != INVALID_LOC).sum(1)
+    assert {0, 1, min(32, M), M} <= set(h.tolist())
+    for vec in ((False, True) if M % 4 == 0 else (False,)):
+        got_bin, got_votes = _warp_vote_model(diag, vote_bin, vec)
+        np.testing.assert_array_equal(got_bin, np.asarray(want.win_bin))
+        np.testing.assert_array_equal(got_votes, np.asarray(want.votes))
+        bad_bin, _ = _warp_vote_model(diag, vote_bin, vec, larger_bin=True)
+        assert not np.array_equal(bad_bin, np.asarray(want.win_bin))
+
+
 # ------------------------------------------------------------ anchor DP ---
 @pytest.mark.parametrize("r,w,band", [
     *(pytest.param(150, 278, b, id=str(b)) for b in (16, 24, 40, 278, None)),
