@@ -73,12 +73,28 @@ Phases (any failure exits non-zero; nothing is caught):
      S 2,048, D 128, bf16, causal, K/V head h // 8; extra checks: float32,
      S 2,000 padded, causal=False, D 80 and 64); exact equality (flash:
      3e-2 in bf16, 1e-4 in float32), timed with CUDA events (`ms`) and
-     torch.profiler (`device_ms`, inputs warm in L2), and
+     torch.profiler (`device_ms`, inputs warm in L2, the mean over the
+     launches its trace holds), and
      `torch.index_select` and `scaled_dot_product_attention` timed
      beside seed_gather and flash_attention;
   4. the same batches through the kernel Mapper and plain-backend
      Mappers on the card (the long-read one on the CSR index, which takes
      the staged path): equal results, field by field;
+  2f. serving on phase 2's session, run after phase 4 so that phase 3
+     reads the kernels in the same state as before this phase existed:
+     `Mapper.save` of its store into the output directory and
+     `Mapper.load` (the loaded map equals phase 2's); a `FrontDoor` on a
+     2^22-base store whose `reload_index` of a second same-shape store must
+     return "reused", the batches after it equal to a fresh session on the
+     second reference; a pair-lane door over 16 x 65,536 bursty pairs and
+     a two-lane door (B 2,048, 20 % long reads of 10 kbp), every request
+     equal to a direct `map` / `map_long` of its rows, `dp_overflow` 0,
+     launches counted over the three doors;
+  2g. the full-DP baseline (`map_single_end`, 16 candidates) on both mates
+     of phase 2's batch, the first 1,024 reads equal to the CPU's, and on
+     65,536 reads at sub_rate 0.005, of whose mapped reads 0.95 must lie
+     within 16 bp of the truth; then phase 3's timed cases' device times
+     read again;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -89,6 +105,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -104,6 +121,15 @@ LONG_BATCH = 2_048           # reads of LONG_LEN bp: 65,536 pseudo-pairs
 LONG_LEN = 10_000
 LONG_TAIL = 1_500
 SEED = 0
+SWAP_REF_LEN = 1 << 22       # phase 2f's two same-shape stores
+SWAP_TABLE_BITS = 20
+SWAP_BATCH = 4_096
+DOOR_BATCHES = 16            # phase 2f's pair-lane door: 16 x BATCH pairs
+TWO_LANE_BATCH = 2_048       # phase 2f's two-lane door
+TWO_LANE_BATCHES = 8
+LONG_FRAC = 0.2
+BASELINE_CANDS = 16          # phase 2g: candidates DP-scored per read
+BASELINE_CHECK = 1_024       # reads held against the CPU
 LM_BATCH = 8                 # yi-6b requests: 2,048-token prompts, 32 tokens
 LM_PROMPT = 2_048
 LM_DECODE = 32
@@ -147,6 +173,10 @@ REPLACES = {
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["xxhash32"] = "src/repro_torch/csrc/xxhash.cu"
+# the __global__ functions each wrapper launches (the profiler's names)
+SYMBOLS = {name: (f"{name}_kernel",) for name in REPLACES}
+SYMBOLS["banded_sw"] = ("banded_sw_warp_kernel", "banded_sw_thread_kernel")
+SYMBOLS["flash_attention"] = ("flash_fma_kernel", "flash_wgmma_kernel")
 PAIR_KERNELS = ("seed_buckets", "pair_frontend", "candidate_align",
                 "residual_dp")
 LONG_KERNELS = ("seed_buckets", "pair_frontend", "location_vote",
@@ -196,20 +226,41 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of one ``fn()`` (every kernel and copy it launched),
-    torch.profiler over ``iters`` calls after one warm-up call."""
+def device_ms(fn, name: str, iters: int = 10) -> float | None:
+    """Device time of one launch of kernel ``name`` in ``fn()``:
+    torch.profiler over ``iters`` calls after one warm-up call, the mean
+    of the events of that kernel's own functions (SYMBOLS) that the trace
+    holds.  The profiler can drop launches from its trace (on an H100, 1
+    to 8 of 10, more late in a run), so a sum over ``iters`` under-reads;
+    a line says how many the trace holds when that is fewer than the
+    wrapper launched, and None stands where it holds none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _cuda
     fn()
     torch.cuda.synchronize()
+    before = _cuda.launch_counts()[name]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    launched = _cuda.launch_counts()[name] - before
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(sym in e.key for sym in SYMBOLS[name])]
+    seen = sum(e.count for e in events)
+    if seen < launched:
+        print(f"[profiler] {name}: the trace holds {seen} of {launched} "
+              f"launches")
+    if not seen:
+        return None
+    return sum(e.self_device_time_total for e in events) / 1e3 / seen
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def max_abs_err(got, want) -> float:
@@ -287,7 +338,8 @@ def main() -> int:
         M_LIGHT, PipelineConfig, residual_buffer)
     from repro_torch.core.seeding import (
         SEED_WORDS, extract_seeds, seed_offsets_tuple)
-    from repro_torch.core.seedmap import INVALID_LOC, SeedMap, SeedMapConfig
+    from repro_torch.core.seedmap import (
+        INVALID_LOC, SeedMap, SeedMapConfig, build_seedmap)
     from repro_torch.core.simulate import (
         ReadSimConfig, random_reference, simulate_long_reads, simulate_pairs)
     from repro_torch.engine import ExecutionConfig, Mapper
@@ -351,7 +403,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.time()
-    mapper = Mapper.build(ref, sm_cfg, pipe, ExecutionConfig(device="cuda"))
+    # the CSR map is kept: phase 2g's baseline queries it
+    csr = build_seedmap(torch.as_tensor(ref, device=dev), sm_cfg)
+    mapper = Mapper.from_index(csr, ref, pipe, ExecutionConfig(device="cuda"))
     torch.cuda.synchronize()
     record["index_build_s"] = time.time() - t0
     print(f"[2] index: {REF_LEN} bases, {sm_cfg.table_size} buckets, "
@@ -609,11 +663,15 @@ def main() -> int:
     print(f"[2d] launches of the building blocks: {bl}")
     (out_dir / "profile_blocks.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=20))
-    block_device_ms = {
-        name: sum(e.self_device_time_total for e in prof.key_averages()
+    block_device_ms = {}
+    for name in BLOCK_KERNELS:
+        events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
-                  and f"{name}_kernel" in e.key) / 1e3
-        for name in BLOCK_KERNELS}
+                  and any(sym in e.key for sym in SYMBOLS[name])]
+        # None where the trace dropped the launch (see device_ms)
+        block_device_ms[name] = (
+            sum(e.self_device_time_total for e in events) / 1e3
+            if events else None)
     print(f"[2d] device time of each kernel's one launch (torch.profiler), "
           f"ms: {block_device_ms}")
     if not all(bl[k] > 0 for k in BLOCK_KERNELS) or any(
@@ -834,6 +892,7 @@ def main() -> int:
     bases = torch.as_tensor(ref, device=dev)
     bases_kref = kernel_reference(bases, kref.pad, False)
     kernels = {}
+    timed_runs = {}     # each kernel's timed case, read again after 2g
 
     def compare(name, run_kernel, run_plain, n_bytes, n_ops, timed=True,
                 iters=20, library=None, tol=0, ops_per_s=INT32_OPS_PER_S,
@@ -863,7 +922,8 @@ def main() -> int:
                 {"case": case, "max_abs_err": err, "tolerance": tol})
         if timed:
             entry["ms"] = time_ms(run_kernel, iters)
-            entry["device_ms"] = device_ms(run_kernel)
+            entry["device_ms"] = device_ms(run_kernel, name)
+            timed_runs[name] = run_kernel
             entry["plain_ms"] = time_ms(run_plain, 3, warmup=1)
             entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops,
                                                          ops_per_s)
@@ -899,9 +959,10 @@ def main() -> int:
     copies = [(r1.clone(), r2.clone()) for _ in range(4)]
     turn = itertools.cycle(copies)
     kernels["seed_buckets"]["cold_device_ms"] = device_ms(
-        lambda: seed_buckets(*next(turn), pipe.seed_len, S, hs, T), iters=12)
+        lambda: seed_buckets(*next(turn), pipe.seed_len, S, hs, T),
+        "seed_buckets", iters=12)
     print(f"[3] seed_buckets: "
-          f"{kernels['seed_buckets']['cold_device_ms']:.4f} ms of device "
+          f"{fmt_ms(kernels['seed_buckets']['cold_device_ms'])} of device "
           f"time (reads cold)")
     del copies, turn
 
@@ -1091,7 +1152,8 @@ def main() -> int:
     kernels["location_vote"]["dense_ms"] = time_ms(
         lambda: location_vote(synth, lr.vote_bin, backend="cuda"), 20)
     kernels["location_vote"]["dense_device_ms"] = device_ms(
-        lambda: location_vote(synth, lr.vote_bin, backend="cuda"))
+        lambda: location_vote(synth, lr.vote_bin, backend="cuda"),
+        "location_vote")
     h_lane = (diag != INVALID_LOC).sum(1).float()
     record["location_vote_h"] = {"mean": float(h_lane.mean()),
                                  "max": int(h_lane.max())}
@@ -1099,7 +1161,7 @@ def main() -> int:
           f"h = {float(h_lane.mean()):.2f} valid slots on average, "
           f"{int(h_lane.max())} at most; {synth.shape[0]} synthetic rows "
           f"60 % valid: {kernels['location_vote']['dense_ms']:.4f} ms, "
-          f"{kernels['location_vote']['dense_device_ms']:.4f} ms of device "
+          f"{fmt_ms(kernels['location_vote']['dense_device_ms'])} of device "
           f"time")
     # the lane's rows 4 bytes off a 16-byte boundary
     off = torch.empty(Bl * Ml + 1, dtype=torch.int32, device=dev)[1:]
@@ -1110,9 +1172,10 @@ def main() -> int:
             lambda: location_vote(off, lr.vote_bin, backend="torch"),
             0, 0, timed=False, case="lane rows 4 bytes off")
     kernels["location_vote"]["unaligned_device_ms"] = device_ms(
-        lambda: location_vote(off, lr.vote_bin, backend="cuda"))
+        lambda: location_vote(off, lr.vote_bin, backend="cuda"),
+        "location_vote")
     print(f"[3] location_vote: the lane's rows 4 bytes off: "
-          f"{kernels['location_vote']['unaligned_device_ms']:.4f} ms of "
+          f"{fmt_ms(kernels['location_vote']['unaligned_device_ms'])} of "
           f"device time")
     del off
 
@@ -1407,7 +1470,7 @@ def main() -> int:
     print(f"[4] {B}-pair batch: kernel and plain Mappers agree on all "
           f"{len(got._fields)} MapResult fields (light-mapped {share:.4f})")
     del plain
-    plain_long = Mapper.build(ref, sm_cfg, pipe, ExecutionConfig(
+    plain_long = Mapper.from_index(csr, ref, pipe, ExecutionConfig(
         device="cuda", backend="torch"))
     if not isinstance(plain_long.index, SeedMap):
         raise RuntimeError("the plain long-read Mapper is not on the CSR map")
@@ -1421,7 +1484,392 @@ def main() -> int:
     print(f"[4] {LONG_BATCH}-read long batch: kernel and plain (staged CSR) "
           f"Mappers agree on all {len(got._fields)} LongReadResult fields")
 
+    del plain_long, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 2f. serving on phase 2's session ----------------------------------
+    from repro_torch.core.baseline import exact_match_rate, map_single_end
+    from repro_torch.engine import FrontDoor, FrontDoorConfig
+    from repro_torch.engine.index_store import store_size_bytes
+    from repro_torch.engine.stats import _percentiles
+    from repro_torch.launch.serve import bursty_arrivals
+
+    serve = {}
+
+    def rows_of(results, lo, hi):
+        """Rows [lo, hi) of a list of same-typed batch results."""
+        return type(results[0])(*(torch.cat(f)[lo:hi]
+                                  for f in zip(*results)))
+
+    def check_requests(requests, direct, tag):
+        """Each request's rows against the same rows of the direct maps
+        of its lane's pool (requests come in pool order per lane)."""
+        offs = {}
+        for req in requests:
+            if req.status != "done":
+                raise RuntimeError(f"{tag}: request {req.id} ended "
+                                   f"{req.status}")
+            lo = offs.get(req.lane, 0)
+            want = direct[req.lane]
+            for f in want._fields:
+                if not torch.equal(getattr(req.result, f),
+                                   getattr(want, f)[lo:lo + req.n]):
+                    raise RuntimeError(
+                        f"{tag}: request {req.id} ({req.lane}, rows "
+                        f"{lo}..{lo + req.n}) differs from the direct map "
+                        f"in {f}")
+            offs[req.lane] = lo + req.n
+        return offs
+
+    def lane_latency(requests, lane):
+        done = [r for r in requests if r.lane == lane]
+        return {"queue_wait_s": _percentiles([r.t_dispatch - r.t_enqueue
+                                              for r in done]),
+                "service_s": _percentiles([r.t_result - r.t_dispatch
+                                           for r in done]),
+                "total_s": _percentiles([r.t_result - r.t_enqueue
+                                         for r in done])}
+
+    def fmt_lat(lat):
+        return ", ".join(f"{k[:-2]} p50 {v['p50'] * 1e3:.2f} / p99 "
+                         f"{v['p99'] * 1e3:.2f} ms" for k, v in lat.items())
+
+    # 1. the store of phase 2's session, loaded into a new session
+    store_dir = out_dir / "index_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    free = shutil.disk_usage(out_dir).free
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mapper.save(store_dir)
+    save_s = time.time() - t0
+    store_bytes = store_size_bytes(store_dir)
+    t0 = time.time()
+    loaded = Mapper.load(store_dir, ExecutionConfig(device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    same_result(loaded.map(noisy.reads1, noisy.reads2), "loaded")
+    if loaded.pipe_cfg != mapper.pipe_cfg or loaded.lr_cfg != mapper.lr_cfg:
+        raise RuntimeError("the loaded session resolved other configs")
+    shutil.rmtree(store_dir)
+    del loaded
+    torch.cuda.empty_cache()
+    serve["store"] = {"bytes": store_bytes, "save_s": save_s,
+                      "load_s": load_s,
+                      "index_build_s": record["index_build_s"],
+                      "disk_free_bytes": free}
+    print(f"[2f] store of phase 2's session: {store_bytes / 1e9:.3f} GB "
+          f"saved in {save_s:.1f} s, loaded into a new session in "
+          f"{load_s:.1f} s (index built in {record['index_build_s']:.1f} "
+          f"s); the loaded map equals phase 2's on all {len(res._fields)} "
+          f"fields")
+
+    # 2. a same-shape swap under a serving door (the kernels' padded
+    # reference must follow the index)
+    sw_exec = ExecutionConfig(device="cuda", stream_batch=SWAP_BATCH)
+    sw_cfg = SeedMapConfig(table_bits=SWAP_TABLE_BITS)
+    sw_refs = [random_reference(SWAP_REF_LEN, np.random.default_rng(s))
+               for s in (1, 2)]
+    sw_sessions = [Mapper.build(r, sw_cfg, pipe, sw_exec) for r in sw_refs]
+    sw_stores = [out_dir / f"swap_store_{k}" for k in (1, 2)]
+    for m, path in zip(sw_sessions, sw_stores):
+        shutil.rmtree(path, ignore_errors=True)
+        m.save(path)
+    sw_sims = [simulate_pairs(sw_refs[1], SWAP_BATCH, ReadSimConfig(),
+                              seed=SEED + 40 + k) for k in range(4)]
+    door_m = Mapper.load(sw_stores[0], sw_exec)
+    with FrontDoor(door_m) as fd:
+        fd.warmup()
+        _cuda.reset_launches()
+        pre = [fd.submit("pairs", (s.reads1, s.reads2)) for s in sw_sims[:2]]
+        fd.dispatch_ready()
+        outcome = fd.reload_index(sw_stores[1])
+        post = [fd.submit("pairs", (s.reads1, s.reads2))
+                for s in sw_sims[2:]]
+        fd.drain()
+        swap_launches = _cuda.launch_counts()
+    if outcome != "reused":
+        raise RuntimeError(f"reload_index of a same-shape store gave "
+                           f"{outcome!r}")
+    n_differ = 0
+    for req, sim, k in zip(pre + post, sw_sims, (0, 0, 1, 1)):
+        want = sw_sessions[k].map(sim.reads1, sim.reads2)
+        for f in want._fields:
+            if not torch.equal(getattr(req.result, f), getattr(want, f)):
+                raise RuntimeError(
+                    f"a batch dispatched {('before', 'after')[k]} the swap "
+                    f"differs from a fresh session on reference {k + 1} "
+                    f"in {f}")
+        if k == 1:
+            old = sw_sessions[0].map(sim.reads1, sim.reads2)
+            n_differ += int((old.pos1 != want.pos1).sum())
+    if n_differ == 0:
+        raise RuntimeError("reference 1's session maps the post-swap reads "
+                           "as reference 2's does: the check cannot see a "
+                           "stale index")
+    for path in sw_stores:
+        shutil.rmtree(path)
+    del sw_sessions, door_m
+    serve["swap"] = {"outcome": outcome, "rows_differing": n_differ,
+                     "launches": swap_launches}
+    print(f"[2f] reload_index of reference 2's store under a serving door: "
+          f"{outcome}; both batches after it equal a fresh session on "
+          f"reference 2 ({n_differ} rows map elsewhere on reference 1), "
+          f"both before it reference 1's; launches {swap_launches}")
+    if not all(swap_launches[k] > 0 for k in PAIR_KERNELS):
+        raise RuntimeError(f"a kernel never launched through the swapped "
+                           f"door: {swap_launches}")
+
+    # 3. the pair-lane door at phase 2's batch shape, on phase 2's index
+    pm = Mapper.from_index(mapper.index, mapper.ref, pipe, ExecutionConfig(
+        device="cuda", stream_batch=BATCH))
+    if pm.index[0].data_ptr() != mapper.index[0].data_ptr():
+        raise RuntimeError("the door's session copied the index")
+    pool = [simulate_pairs(ref, BATCH, ReadSimConfig(), seed=SEED + 50 + k)
+            for k in range(DOOR_BATCHES)]
+    p1 = np.concatenate([s.reads1 for s in pool])
+    p2 = np.concatenate([s.reads2 for s in pool])
+    trace = list(bursty_arrivals(np.random.default_rng(SEED + 60), BATCH,
+                                 p1, p2))
+    fd = FrontDoor(pm, FrontDoorConfig())
+    fd.warmup()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    report = fd.serve(iter(trace))
+    door_s = time.perf_counter() - t0
+    door_launches = _cuda.launch_counts()
+    fd.close()
+    totals = report["stage_totals"]["pairs"]
+    direct = [pm.map(s.reads1, s.reads2) for s in pool]
+    if totals["dp_overflow"] or any(bool((d.method == 4).any())
+                                    for d in direct):
+        raise RuntimeError(f"the residual DP buffer overflowed: {totals}")
+    if totals["n_pairs"] != DOOR_BATCHES * BATCH:
+        raise RuntimeError(f"the door served {totals['n_pairs']} pairs")
+    check_requests(fd.requests, {"pairs": rows_of(direct, 0, len(p1))},
+                   "pair-lane door")
+    n_door = DOOR_BATCHES * BATCH
+    led = report["serve"]
+    serve["pair_door"] = {
+        "pairs": n_door, "requests": len(fd.requests), "seconds": door_s,
+        "pairs_per_s": n_door / door_s,
+        "mbp_per_s": n_door * 2 * pipe.read_len / door_s / 1e6,
+        "map_stream_pairs_per_s": sr.pairs_per_s,
+        "batches": led["batches"], "batch_fill": led["batch_fill"],
+        "latency": led["latency"], "watchdog": report["watchdog"],
+        "stage_totals": totals, "launches": door_launches}
+    print(f"[2f] pair-lane door: {len(fd.requests)} requests, {n_door} pairs"
+          f" in {led['batches']['pairs']} batches (fill "
+          f"{led['batch_fill']['pairs']:.4f}), {door_s:.3f} s: "
+          f"{n_door / door_s:.0f} pairs/s, "
+          f"{n_door * 2 * pipe.read_len / door_s / 1e6:.1f} Mbp/s (phase "
+          f"2's map_stream {sr.pairs_per_s:.0f} pairs/s); every request "
+          f"equals its rows of a direct map")
+    print(f"[2f] pair-lane door latency: {fmt_lat(led['latency'])}; "
+          f"watchdog {report['watchdog']}; launches {door_launches}")
+    if not all(door_launches[k] > 0 for k in PAIR_KERNELS):
+        raise RuntimeError(f"a kernel never launched through the pair-lane "
+                           f"door: {door_launches}")
+    del direct, fd, trace, pool, p1, p2
+
+    # 4. both lanes through one door (phase 2b's long-read shape)
+    tm = Mapper.from_index(mapper.index, mapper.ref, pipe, ExecutionConfig(
+        device="cuda", stream_batch=TWO_LANE_BATCH))
+    n_pairs2 = TWO_LANE_BATCH * TWO_LANE_BATCHES
+    n_long2 = int(round(n_pairs2 * LONG_FRAC))
+    psim = simulate_pairs(ref, n_pairs2, ReadSimConfig(), seed=SEED + 70)
+    lpool, ltrue = simulate_long_reads(ref, n_long2, LONG_LEN, 0.01,
+                                       seed=SEED + 71)
+    trace = list(bursty_arrivals(np.random.default_rng(SEED + 72),
+                                 TWO_LANE_BATCH, psim.reads1, psim.reads2,
+                                 lpool, LONG_FRAC))
+    fd = FrontDoor(tm, FrontDoorConfig())
+    fd.warmup(long_reads=lpool[:1])
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    report = fd.serve(iter(trace))
+    two_s = time.perf_counter() - t0
+    two_launches = _cuda.launch_counts()
+    fd.close()
+    totals = report["stage_totals"]
+    chunks = range(0, n_pairs2, TWO_LANE_BATCH)
+    direct_p = [tm.map(psim.reads1[i:i + TWO_LANE_BATCH],
+                       psim.reads2[i:i + TWO_LANE_BATCH]) for i in chunks]
+    direct_l = [tm.map_long(lpool[i:i + TWO_LANE_BATCH])
+                for i in range(0, n_long2, TWO_LANE_BATCH)]
+    if totals["pairs"]["dp_overflow"] or any(bool((d.method == 4).any())
+                                             for d in direct_p):
+        raise RuntimeError(f"the residual DP buffer overflowed: {totals}")
+    if totals["pairs"]["n_pairs"] != n_pairs2 \
+            or totals["long"]["n_reads"] != n_long2:
+        raise RuntimeError(f"the two-lane door served {totals}")
+    check_requests(fd.requests, {"pairs": rows_of(direct_p, 0, n_pairs2),
+                                 "long": rows_of(direct_l, 0, n_long2)},
+                   "two-lane door")
+    last_pair = max(r.t_dispatch for r in fd.requests if r.lane == "pairs")
+    first_long = min(r.t_dispatch for r in fd.requests if r.lane == "long")
+    if first_long >= last_pair:
+        raise RuntimeError("the long lane waited for the pair traffic to "
+                           "end (starved)")
+    led = report["serve"]
+    lres = rows_of(direct_l, 0, n_long2)
+    lnear2 = float(((lres.position.cpu().long()
+                     - torch.from_numpy(ltrue).long()).abs()
+                    <= mapper.lr_cfg.vote_bin).float().mean())
+    per_lane = {}
+    for lane, n_rows, bp in (("pairs", n_pairs2, 2 * pipe.read_len),
+                             ("long", n_long2, LONG_LEN)):
+        per_lane[lane] = {
+            "rows": n_rows, "rows_per_s": n_rows / two_s,
+            "mbp_per_s": n_rows * bp / two_s / 1e6,
+            "requests": sum(r.lane == lane for r in fd.requests),
+            "batches": led["batches"][lane],
+            "batch_fill": led["batch_fill"][lane],
+            "latency": lane_latency(fd.requests, lane)}
+    serve["two_lane_door"] = {"seconds": two_s, "lanes": per_lane,
+                              "watchdog": report["watchdog"],
+                              "stage_totals": totals,
+                              "long_within_vote_bin": lnear2,
+                              "launches": two_launches}
+    for lane, q in per_lane.items():
+        print(f"[2f] two-lane door, {lane}: {q['requests']} requests, "
+              f"{q['rows']} rows in {q['batches']} batches (fill "
+              f"{q['batch_fill']:.4f}), {q['rows_per_s']:.0f} rows/s, "
+              f"{q['mbp_per_s']:.1f} Mbp/s; {fmt_lat(q['latency'])}")
+    print(f"[2f] two-lane door: {two_s:.3f} s, watchdog "
+          f"{report['watchdog']}, long reads within the vote bin "
+          f"{lnear2:.4f}; every request equals its rows of a direct map / "
+          f"map_long; launches {two_launches}")
+    if not all(two_launches[k] > 0 for k in PAIR_KERNELS + LONG_KERNELS):
+        raise RuntimeError(f"a kernel never launched through the two-lane "
+                           f"door: {two_launches}")
+    sv = {k: swap_launches[k] + door_launches[k] + two_launches[k]
+          for k in REPLACES}
+    if any(sv[k] for k in BLOCK_KERNELS + LM_KERNELS + ("merge_filter",)):
+        raise RuntimeError(f"a kernel off the serving path launched: {sv}")
+    record["serve"] = serve
+    del direct_p, direct_l, lres, fd, tm, pm, trace
+    torch.cuda.empty_cache()
+
+    # ---- 2g. the full-DP baseline on phase 2's batch -----------------------
+    se_reads = torch.cat([r1_dev, revcomp(r2_dev)])
+    se_true = np.concatenate([noisy.true_start1, noisy.true_start2])
+
+    def baseline():
+        """Both mates, one 65,536-read chunk at a time (reads are
+        independent; a chunk's DP rows take ~8 GiB)."""
+        parts = [map_single_end(csr, bases, se_reads[i:i + BATCH], pipe,
+                                BASELINE_CANDS)
+                 for i in range(0, 2 * BATCH, BATCH)]
+        return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+    base_runs_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):      # the first call also loads its kernels
+        t0 = time.perf_counter()
+        base = baseline()
+        torch.cuda.synchronize()
+        base_runs_ms.append((time.perf_counter() - t0) * 1e3)
+    base_ms = base_runs_ms[1]
+    base_peak = torch.cuda.max_memory_allocated()
+    csr_cpu = SeedMap(csr.offsets.cpu(), csr.locations.cpu(), csr.config)
+    on_cpu = map_single_end(csr_cpu, torch.from_numpy(ref),
+                            se_reads[:BASELINE_CHECK].cpu(), pipe,
+                            BASELINE_CANDS)
+    for f in on_cpu._fields:
+        if not torch.equal(getattr(base, f)[:BASELINE_CHECK].cpu(),
+                           getattr(on_cpu, f)):
+            raise RuntimeError(f"the baseline on the card differs from the "
+                               f"CPU's in {f}")
+    bpos = base.pos.cpu().numpy().astype(np.int64)
+    bmapped = base.mapped.cpu().numpy()
+    near_all = np.abs(bpos - se_true) <= 16
+    near = near_all[bmapped]
+    # reads with a seed equal to the reference at its true place: their
+    # true start is a candidate.  A read whose three seeds all carry an
+    # error (~9 % at sub_rate 0.01) has only candidates from hash
+    # collisions, and the baseline maps it to the best of those, so the
+    # accuracy rule is held on a batch at sub_rate 0.005 below.
+    span = np.arange(pipe.read_len)
+    truth_win = ref[se_true[:, None] + span]
+    se_np = se_reads.cpu().numpy()
+    clean_seed = np.zeros(2 * BATCH, bool)
+    for o in offs:
+        clean_seed |= (se_np[:, o:o + pipe.seed_len]
+                       == truth_win[:, o:o + pipe.seed_len]).all(1)
+    near_clean = near_all[bmapped & clean_seed]
+    gx = np.concatenate([res.pos1.cpu().numpy(), res.pos2.cpu().numpy()])
+    both = bmapped & (gx != INVALID_LOC)
+    agree = float((bpos[both] == gx[both]).mean())
+    ex1 = exact_match_rate(r1_dev, bases, torch.as_tensor(
+        noisy.true_start1, device=dev))
+    ex2 = exact_match_rate(se_reads[BATCH:], bases, torch.as_tensor(
+        noisy.true_start2, device=dev))
+    # paired-end: both mates of a pair exact
+    exact = (se_np == truth_win).all(1)
+    w1, w2 = exact[:BATCH], exact[BATCH:]
+    record["baseline"] = {
+        "reads": 2 * BATCH, "max_cands": BASELINE_CANDS, "ms": base_ms,
+        "first_ms": base_runs_ms[0],
+        "reads_per_s": 2 * BATCH / base_ms * 1e3,
+        "peak_mem_bytes": base_peak, "mapped": float(bmapped.mean()),
+        "within_16_of_mapped": float(near.mean()),
+        "clean_seed": float(clean_seed.mean()),
+        "within_16_of_mapped_clean_seed": float(near_clean.mean()),
+        "agree_with_genpairx": agree, "both_mapped": int(both.sum()),
+        "exact_single_end": (float(ex1) + float(ex2)) / 2,
+        "exact_paired_end": float((w1 & w2).mean())}
+    b = record["baseline"]
+    print(f"[2g] map_single_end of {2 * BATCH} reads ({BASELINE_CANDS} "
+          f"candidates each, full Gotoh): {base_ms:.1f} ms "
+          f"({b['reads_per_s']:.0f} reads/s; first call "
+          f"{base_runs_ms[0]:.1f} ms), peak device memory "
+          f"{base_peak / 2**30:.2f} GiB; the first {BASELINE_CHECK} reads "
+          f"equal the CPU's")
+    print(f"[2g] phase 2's batch: mapped {b['mapped']:.4f}, within 16 bp "
+          f"of truth {b['within_16_of_mapped']:.4f} of mapped, "
+          f"{b['within_16_of_mapped_clean_seed']:.4f} of the mapped reads "
+          f"with an error-free seed ({b['clean_seed']:.4f} of reads); "
+          f"equal to GenPairX's "
+          f"pos1/pos2 on {agree:.4f} of {b['both_mapped']} reads both map; "
+          f"exact-match rate single-end {b['exact_single_end']:.4f}, "
+          f"paired-end (both mates) {b['exact_paired_end']:.4f}")
+    del base, on_cpu, csr_cpu, se_reads
+    torch.cuda.empty_cache()
+    # the accuracy rule of repro's baseline test (0.95 of the mapped reads
+    # within 16 bp of the truth) on mate 1 of a batch at its sub_rate
+    acc = simulate_pairs(ref, BATCH, ReadSimConfig(sub_rate=0.005),
+                         seed=SEED + 80)
+    acc_res = map_single_end(csr, bases, torch.as_tensor(acc.reads1,
+                                                         device=dev),
+                             pipe, BASELINE_CANDS)
+    acc_mapped = acc_res.mapped.cpu().numpy()
+    acc_near = (np.abs(acc_res.pos.cpu().numpy().astype(np.int64)
+                       - acc.true_start1) <= 16)[acc_mapped]
+    b["sub_rate_0005"] = {"reads": BATCH, "mapped": float(acc_mapped.mean()),
+                          "within_16_of_mapped": float(acc_near.mean())}
+    print(f"[2g] {BATCH} reads at sub_rate 0.005: mapped "
+          f"{acc_mapped.mean():.4f}, within 16 bp of truth "
+          f"{acc_near.mean():.4f} of mapped (rule: 0.95)")
+    if acc_near.mean() < 0.95:
+        raise RuntimeError("baseline accuracy below 0.95 within 16 bp of "
+                           "the mapped reads at sub_rate 0.005")
+    del acc, acc_res
+    torch.cuda.empty_cache()
+
+    # phase 3's device times read again after the serving phases, which
+    # hold the store, the doors and the baseline's ~18 GiB of DP rows
+    after = {n: device_ms(fn, n) for n, fn in timed_runs.items()}
+    record["device_ms_after_serving"] = after
+    print("[3] device ms of each timed case, phase 3 / after 2f and 2g: "
+          + "; ".join(f"{n} {fmt_ms(kernels[n]['device_ms'])} / "
+                      f"{fmt_ms(ms)}" for n, ms in after.items()))
+    del timed_runs
+
     # ---- 5. results -----------------------------------------------------
+    for name, entry in kernels.items():
+        entry["launches_serve"] = sv[name]
+        entry["launches"] += sv[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

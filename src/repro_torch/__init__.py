@@ -12,6 +12,13 @@ hold this one against.  Entry point::
     res = mapper.map(reads1, reads2)          # read pairs
     long_res = mapper.map_long(long_reads)    # long reads (§4.7)
 
+Sessions are served through `engine.FrontDoor` (continuous batching of
+ragged requests of both lanes), persisted with ``mapper.save`` /
+``Mapper.load`` / ``mapper.swap_index`` (`engine.index_store`, the JAX
+package's on-disk format), and driven by ``python -m
+repro_torch.launch.serve``; `core.baseline.map_single_end` is the paper's
+full-DP single-end comparison point.
+
 The package also serves a dense LM of repro's substrate (yi-6b and its
 family) through the hand-written flash attention kernel::
 

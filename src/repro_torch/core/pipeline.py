@@ -134,6 +134,15 @@ def stage_stat_counts(res: MapResult) -> dict:
     }
 
 
+def stage_stats(res: MapResult) -> dict:
+    """Fig. 10 quantities as fractions of the (valid rows of the) batch,
+    device float32 scalars.  Reading them on the host syncs; accumulate
+    `stage_stat_counts` on the device instead when looping over batches."""
+    counts = stage_stat_counts(res)
+    n = counts.pop("n_pairs").clamp(min=1)
+    return {k: v / n for k, v in counts.items()}
+
+
 class ResidualBuffer(NamedTuple):
     """The fixed-capacity residual DP buffer of one batch (step 5)."""
 

@@ -11,7 +11,10 @@ bucket-sharded map on the sharded-index mesh plan.
 ``mapper.map`` maps one batch of read pairs and ``mapper.map_long`` one
 batch of long reads (the lane config is resolved at build, too);
 ``map_stream`` / ``map_long_stream`` stream batches with device-side stage
-totals and one host sync at the end.  All are eager launches on PyTorch's
+totals and one host sync at the end.  ``mapper.save`` / ``Mapper.load``
+round-trip the resolved session through an index store
+(`engine.index_store`), and ``mapper.swap_index`` replaces the index a
+live session serves.  All are eager launches on PyTorch's
 current stream.  On a mesh (`ExecutionConfig.mesh`) every rank is handed
 the same global batch, maps its rows of the data axis and all_gathers the
 result, so each call returns the global result on every rank.
@@ -19,6 +22,8 @@ result, so each call returns the global result on every rank.
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -48,6 +53,12 @@ from repro_torch.engine.config import (
     ExecutionConfig,
     resolved_long_read,
     resolved_pipeline,
+)
+from repro_torch.engine.index_store import (
+    IndexStoreError,
+    StorePayload,
+    load_store,
+    save_store,
 )
 from repro_torch.engine.stats import (
     LONG_STAT_KEYS,
@@ -89,17 +100,18 @@ class Mapper:
 
     def __init__(self, *, index, ref: torch.Tensor, pipe_cfg: PipelineConfig,
                  exec_cfg: ExecutionConfig, device: torch.device,
-                 backend: str):
+                 backend: str, sm_config: SeedMapConfig):
         self.index = index           # SeedMap | PaddedSeedMap | SeedMapShard
         self.ref = ref               # uint8 bases or int32 packed words
         self.pipe_cfg = pipe_cfg     # fully resolved
         self.exec_cfg = exec_cfg
         self.device = device
         self.backend = backend       # "cuda" or "torch"
-        # the reference padded once for both window kernels (CUDA only)
-        width = pipe_cfg.read_len + 2 * max(pipe_cfg.max_gap, pipe_cfg.dp_pad)
-        self.kref = (kernel_reference(ref, width, pipe_cfg.packed_ref)
-                     if backend == "cuda" else None)
+        self.sm_config = sm_config   # the config of the index it was given
+        self.kref = self._kernel_ref(ref)
+        # the tune-cache snapshot of the store it was loaded from, passed
+        # through unchanged by `save` (this package has no tuner)
+        self._tune_entries: dict = {}
         mesh = exec_cfg.mesh
         # this rank's rows of each global batch (None: one device)
         self._split = (None if mesh is None else
@@ -112,6 +124,14 @@ class Mapper:
                 exec_cfg.model_axis, self.kref)
         else:
             self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg)
+
+    def _kernel_ref(self, ref: torch.Tensor):
+        """The reference padded once for both window kernels (CUDA only)."""
+        if self.backend != "cuda":
+            return None
+        cfg = self.pipe_cfg
+        width = cfg.read_len + 2 * max(cfg.max_gap, cfg.dp_pad)
+        return kernel_reference(ref, width, cfg.packed_ref)
 
     # ------------------------------------------------------------ build --
     @classmethod
@@ -156,7 +176,8 @@ class Mapper:
             ssm = shard_seedmap(sm, mesh.shape[mesh.mesh_dim_names.index(axis)])
             index = ssm.shard(mesh.get_local_rank(axis), device)
             return cls(index=index, ref=ref_arr, pipe_cfg=cfg,
-                       exec_cfg=exec_cfg, device=device, backend=backend)
+                       exec_cfg=exec_cfg, device=device, backend=backend,
+                       sm_config=sm.config)
         if cfg.packed_ref:
             ref_arr = ref if packed_in else pack_2bit(ref)
         elif packed_in:
@@ -176,7 +197,107 @@ class Mapper:
         else:
             index = to_padded(sm, cap=cfg.max_locs_per_seed)
         return cls(index=index, ref=ref_arr, pipe_cfg=cfg, exec_cfg=exec_cfg,
-                   device=device, backend=backend)
+                   device=device, backend=backend, sm_config=sm.config)
+
+    # ----------------------------------------------------- index store ---
+    def save(self, path) -> str:
+        """Persist the resolved session to an index store at ``path``
+        (`engine.index_store`): the resolved reference flavor, SeedMap
+        layout and configs.  ``Mapper.load`` rebuilds an identical session
+        from it without calling `build_seedmap`.  Returns the manifest
+        path."""
+        if self.exec_cfg.shard_index:
+            raise NotImplementedError(
+                "saving a shard_index session is not supported; save a "
+                "replicated-plan session (CSR layout) and load the store "
+                "into the sharded ExecutionConfig instead")
+        return save_store(path, index=self.index, ref=self.ref,
+                          pipe_cfg=self.pipe_cfg, sm_config=self.sm_config,
+                          lr_cfg=self.lr_cfg,
+                          tune_entries=self._tune_entries)
+
+    @classmethod
+    def load(cls, path, exec_cfg: ExecutionConfig | None = None, *,
+             fallback_ref=None, seedmap_cfg: SeedMapConfig | None = None,
+             pipe_cfg: PipelineConfig | None = None) -> "Mapper":
+        """Cold-start a session from a saved index store, with no index
+        build.
+
+        The store's configs are already resolved, so the session maps
+        exactly as the one that saved it.  ``exec_cfg`` supplies the
+        execution side (device, stream batch, mesh); with ``long_read``
+        None it adopts the store's lane config.  An unreadable store warns
+        and degrades to ``Mapper.build(fallback_ref, seedmap_cfg,
+        pipe_cfg, exec_cfg)``; with no ``fallback_ref`` it raises
+        `IndexStoreError`, as there is nothing to build from.
+        """
+        payload = load_store(path)
+        if payload is None:
+            if fallback_ref is None:
+                raise IndexStoreError(
+                    f"index store {os.fspath(path)!r} is unreadable and "
+                    "no fallback_ref was provided to rebuild from")
+            warnings.warn(
+                f"index store {os.fspath(path)!r} unreadable; rebuilding "
+                "the session from the reference", stacklevel=2)
+            return cls.build(fallback_ref, seedmap_cfg, pipe_cfg, exec_cfg)
+        exec_cfg = exec_cfg or ExecutionConfig()
+        if exec_cfg.long_read is None and payload.lr_cfg is not None \
+                and not exec_cfg.shard_index:
+            exec_cfg = dataclasses.replace(exec_cfg,
+                                           long_read=payload.lr_cfg)
+        mapper = cls.from_index(payload.index, payload.ref,
+                                payload.pipe_cfg, exec_cfg)
+        mapper._tune_entries = dict(payload.tune_entries)
+        return mapper
+
+    def swap_index(self, store, *, strict: bool = False) -> str:
+        """Replace the index this session serves with a saved store's.
+
+        Call it between dispatches.  A store with the same resolved
+        configs and the same array shapes and dtypes replaces ``index``,
+        ``ref`` and the kernels' padded reference ``kref`` with the
+        store's, on the session's device: ``"reused"``.  Any other store
+        re-runs `from_index` in place with a warning: ``"rebuilt"``.  An
+        unreadable store warns and keeps the index already served:
+        ``"kept"``.  ``store`` is a path or a loaded `StorePayload`.
+        """
+        if self.exec_cfg.shard_index:
+            raise NotImplementedError(
+                "swap_index is not supported on shard_index sessions")
+        payload = (store if isinstance(store, StorePayload)
+                   else load_store(store, strict=strict))
+        if payload is None:
+            warnings.warn("swap_index: unreadable store; keeping the "
+                          "index already being served", stacklevel=2)
+            return "kept"
+        old = (*self.index[:-1], self.ref)
+        new = (*payload.index[:-1], payload.ref)
+        same = (payload.pipe_cfg == self.pipe_cfg
+                and payload.sm_config == self.sm_config
+                and payload.lr_cfg == self.lr_cfg
+                and type(payload.index) is type(self.index)
+                and all(o.shape == n.shape and o.dtype == n.dtype
+                        for o, n in zip(old, new)))
+        if same:
+            index = type(payload.index)(
+                *(x.to(self.device) for x in payload.index[:-1]),
+                self.index.config)
+            ref = payload.ref.to(self.device)
+            self.index, self.ref, self.kref = index, ref, self._kernel_ref(ref)
+            return "reused"
+        warnings.warn(
+            "swap_index: store differs in shape or config from the live "
+            "session; rebuilding in place", stacklevel=2)
+        exec_cfg = self.exec_cfg
+        if payload.lr_cfg is not None:
+            exec_cfg = dataclasses.replace(exec_cfg,
+                                           long_read=payload.lr_cfg)
+        fresh = Mapper.from_index(payload.index, payload.ref,
+                                  payload.pipe_cfg, exec_cfg)
+        fresh._tune_entries = dict(payload.tune_entries)
+        self.__dict__.update(fresh.__dict__)
+        return "rebuilt"
 
     # ------------------------------------------------------------- run ---
     def _step(self, reads1: torch.Tensor, reads2: torch.Tensor,
