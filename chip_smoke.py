@@ -93,8 +93,23 @@ Phases (any failure exits non-zero; nothing is caught):
   2g. the full-DP baseline (`map_single_end`, 16 candidates) on both mates
      of phase 2's batch, the first 1,024 reads equal to the CPU's, and on
      65,536 reads at sub_rate 0.005, of whose mapped reads 0.95 must lie
-     within 16 bp of the truth; then phase 3's timed cases' device times
-     read again;
+     within 16 bp of the truth;
+  2h. the rest of the mapper on phase 2's session: `map_long_reads` of
+     phase 2b's batch equal to `Mapper.map_long`, `query_padded` of phase
+     2's seeds equal to the rows the step's bucket ids select (merged,
+     its candidates), `seedmap_stats` of the 2^26-bucket index;
+     `tune_session` at phase 2's shape (65,536 pairs, 16,384 residual
+     rows, vote rows of 10 kbp reads; reps 3) into the output directory,
+     where every launch geometry of each family's grid is held against
+     the plain version on the same inputs and no entry may be
+     `plain_faster`, a `tune=` session equal to one that sets the winners
+     explicitly (and to phase 2 where only geometry won);
+     `multihost.map_stream` at world size 1 in turns with `map_stream`
+     (equal totals, a one-host health ledger), a `PreemptionGuard` fired
+     after the second batch (the stream drains; each accepted batch equal
+     to the stream's), and ``serve --chaos sigterm@0:2 --health-out`` as
+     a subprocess; launches counted over the phase ("tune + fleet");
+     then phase 3's timed cases' device times read again;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -251,7 +266,7 @@ def device_ms(fn, name: str, iters: int = 10) -> float | None:
               if e.device_type == DeviceType.CUDA
               and any(sym in e.key for sym in SYMBOLS[name])]
     seen = sum(e.count for e in events)
-    if seen < launched:
+    if seen != launched:
         print(f"[profiler] {name}: the trace holds {seen} of {launched} "
               f"launches")
     if not seen:
@@ -1857,6 +1872,222 @@ def main() -> int:
     del acc, acc_res
     torch.cuda.empty_cache()
 
+    # ---- 2h. the rest of the mapper: core API, tuner, fleet stream -------
+    from repro_torch.core import map_long_reads, seedmap_stats
+    from repro_torch.core.query import query_padded
+    from repro_torch.core.seeding import seed_read_batch
+    from repro_torch.engine import multihost
+    from repro_torch.engine.stats import ServeStats
+    from repro_torch.runtime import PreemptionGuard
+    from repro_torch.tune import BLOCK_GRID, FAMILIES, tune_session
+
+    rest = {}
+    t_rest = time.time()
+    _cuda.reset_launches()
+    # 1. the core API on the card, against the session's own step
+    got = map_long_reads(mapper.index, mapper.ref, long_reads, mapper.lr_cfg)
+    want = mapper.map_long(long_reads)
+    torch.cuda.synchronize()
+    for f in want._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise RuntimeError(f"map_long_reads differs from Mapper.map_long "
+                               f"in {f}")
+    r2_fwd = revcomp(r2_dev).contiguous()
+    step_ids = seed_buckets(r1_dev, r2_fwd, pipe.seed_len, S, hs, T)
+    seeds = torch.cat([seed_read_batch(x, pipe.seed_len, S, hs).hashes
+                       for x in (r1_dev, r2_fwd)])
+    q_rows, q_counts = query_padded(mapper.index, seeds)
+    if not torch.equal(q_rows, mapper.index.rows[step_ids.long()]):
+        raise RuntimeError("query_padded differs from the rows the step's "
+                           "seed_buckets ids select")
+    q_fe = frontend_merge_filter(q_rows[:B], q_rows[B:], offs, pipe.delta, C)
+    step_fe = frontend_from_buckets(rows, step_ids, offs, pipe.delta, C)
+    for f in step_fe._fields:
+        if not torch.equal(getattr(q_fe, f), getattr(step_fe, f)):
+            raise RuntimeError(f"query_padded's rows, merged, differ from "
+                               f"the step's front end in {f}")
+    stats = seedmap_stats(csr)
+    if stats["n_locations"] != int(csr.offsets[-1]) or \
+            stats["table_size"] != sm_cfg.table_size:
+        raise RuntimeError(f"seedmap_stats {stats} disagree with the index")
+    rest["seedmap_stats"] = stats
+    print(f"[2h] map_long_reads of {LONG_BATCH} x {LONG_LEN} bp equals "
+          f"Mapper.map_long on all {len(want._fields)} fields; query_padded "
+          f"of the batch's {seeds.numel()} seeds equals the step's rows and, "
+          f"merged, its candidates; seedmap_stats: {stats}")
+    del got, want, q_rows, q_counts, q_fe, step_fe, seeds
+
+    # 2. the tuner at phase 2's shape: every grid value of every family is
+    # held against the plain version on the same inputs inside the sweep
+    cache = out_dir / "tune_cache.json"
+    cache.unlink(missing_ok=True)
+    t0 = time.time()
+    entries = tune_session(ref, mapper.index, pipe, ExecutionConfig(
+        device="cuda"), batch=BATCH, lr_cfg=lr, reps=3,
+        long_read_len=LONG_LEN, path=cache)
+    rest["tune_s"] = time.time() - t0
+    rest["tune"] = entries
+    winners = {}
+    for key, e in sorted(entries.items()):
+        family = key.split("/")[1]
+        winners[family] = e["params"]
+        grid = {k for k in e["meta"]["candidates_us"]
+                if not k.startswith("staged")}
+        print(f"[2h] {key}: {e['params']} us {e['us']} staged_us "
+              f"{e['staged_us']} plain_faster {e['plain_faster']} "
+              f"({e['meta']['tune_s']:.2f} s); candidates us "
+              f"{e['meta']['candidates_us']}")
+        if not key.startswith("cuda/") or e["plain_faster"]:
+            raise RuntimeError(f"{key}: the plain version beat every kernel "
+                               f"configuration, or the entry is not the "
+                               f"kernel's")
+        if not all(any(k.startswith(f"block{b}") for k in grid)
+                   for b in BLOCK_GRID[family]):
+            raise RuntimeError(f"{key}: the sweep left out a grid value: "
+                               f"{sorted(grid)}")
+    if sorted(winners) != sorted(FAMILIES):
+        raise RuntimeError(f"the tuner wrote {sorted(entries)}")
+    print(f"[2h] tune_session: {len(entries)} entries in "
+          f"{rest['tune_s']:.1f} s; every launch geometry of each grid "
+          f"equals the plain version on the same inputs")
+    pa, rd = winners["candidate_align"], winners["residual_dp"]
+    explicit_cfg = dataclasses.replace(
+        pipe, frontend_block=winners["pair_frontend"].get("block"),
+        light_block=pa.get("block"), residual_block=rd.get("block"),
+        prescreen_top=pa["prescreen_top"], dp_band=rd.get("dp_band"))
+    tuned = Mapper.from_index(mapper.index, mapper.ref, pipe,
+                              ExecutionConfig(device="cuda", tune=str(cache)))
+    explicit = Mapper.from_index(mapper.index, mapper.ref, explicit_cfg,
+                                 ExecutionConfig(device="cuda"))
+    if tuned.pipe_cfg != explicit.pipe_cfg or \
+            tuned.lr_cfg.vote_block != winners["location_vote"].get("block"):
+        raise RuntimeError(f"the tuned session resolved {tuned.pipe_cfg}, "
+                           f"not the winners {explicit.pipe_cfg}")
+    got = tuned.map(noisy.reads1, noisy.reads2)
+    want = explicit.map(noisy.reads1, noisy.reads2)
+    torch.cuda.synchronize()
+    for f in want._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise RuntimeError(f"the tuned session differs from the "
+                               f"explicit one in {f}")
+    semantic = (pa["prescreen_top"] != 0 or rd.get("dp_band") is not None)
+    if not semantic:
+        for f in res._fields:
+            if not torch.equal(getattr(got, f), getattr(res, f)):
+                raise RuntimeError(f"the tuned session (launch geometry "
+                                   f"only) differs from phase 2 in {f}")
+    rest["tuned_cfg"] = {k: getattr(tuned.pipe_cfg, k) for k in (
+        "frontend_block", "light_block", "residual_block", "prescreen_top",
+        "dp_band", "packed_ref")}
+    print(f"[2h] tune=cache session: {rest['tuned_cfg']}, vote_block "
+          f"{tuned.lr_cfg.vote_block}; maps phase 2's batch equal to the "
+          f"session that sets the winners explicitly"
+          + ("" if semantic else ", and to phase 2's own result"))
+    del tuned, explicit, got, want
+
+    # 3. the fleet stream at world size 1 (no process group): the
+    # single-host loop, with a one-host health ledger
+    if multihost.process_count() != 1:
+        raise RuntimeError("a process group is still initialised")
+    # in turns with the session's own map_stream (plain, fleet, fleet,
+    # plain): phase 2's stream ran first in its process, on a cold card
+    rates = {"map_stream": [], "fleet": []}
+    for kind in ("map_stream", "fleet", "fleet", "map_stream"):
+        kw = dict(reduce_fn=count_correct, reduce_init=torch.zeros(
+            (), dtype=torch.int64, device=dev))
+        fsr = (mapper.map_stream(stream_batches, **kw) if kind ==
+               "map_stream" else multihost.map_stream(
+                   mapper, stream_batches, serve_stats=ServeStats(), **kw))
+        rates[kind].append(fsr.pairs_per_s)
+        if fsr.totals != sr.totals or int(fsr.reduced) != int(sr.reduced):
+            raise RuntimeError(f"the {kind} stream's totals {fsr.totals} "
+                               f"differ from phase 2's {sr.totals}")
+        if kind == "fleet":
+            h = fsr.health
+            if (h["n_hosts"], h["keepalive_rounds"], h["rounds"]) != (
+                    1, 0, STREAM_BATCHES):
+                raise RuntimeError(f"the one-host health ledger is off: {h}")
+    rest["fleet_stream"] = {"pairs": fsr.n_pairs, "pairs_per_s": rates,
+                            "phase2_pairs_per_s": sr.pairs_per_s,
+                            "health": h}
+    print(f"[2h] multihost.map_stream at world size 1: {fsr.n_pairs} pairs, "
+          f"totals equal phase 2's; pairs/s in turns map_stream "
+          f"{rates['map_stream'][0]:.0f}, fleet {rates['fleet'][0]:.0f}, "
+          f"fleet {rates['fleet'][1]:.0f}, map_stream "
+          f"{rates['map_stream'][1]:.0f} (phase 2's map_stream "
+          f"{sr.pairs_per_s:.0f}); health n_hosts {h['n_hosts']}, "
+          f"keepalive_rounds {h['keepalive_rounds']}")
+    direct = []
+    mapper.map_stream(stream_batches, on_result=lambda i, r, n:
+                      direct.append(r))
+    guard = PreemptionGuard()
+
+    def fired_after_two():
+        for k, item in enumerate(stream_batches):
+            yield item
+            if k == 1:
+                guard.request()
+
+    accepted = []
+    try:
+        dsr = multihost.map_stream(mapper, fired_after_two(), guard=guard,
+                                   on_result=lambda i, r, n:
+                                   accepted.append(r))
+    finally:
+        guard.uninstall()
+    if dsr.health["drain_reason"] != "preemption" or \
+            not 2 <= dsr.n_batches < STREAM_BATCHES:
+        raise RuntimeError(f"the guarded stream did not drain: "
+                           f"{dsr.health}")
+    for k, got in enumerate(accepted):
+        for f in got._fields:
+            if not torch.equal(getattr(got, f), getattr(direct[k], f)):
+                raise RuntimeError(f"accepted batch {k} of the drained "
+                                   f"stream differs from the stream's in {f}")
+    rest["drained_stream"] = {"batches": dsr.n_batches,
+                              "pairs": dsr.n_pairs, "health": dsr.health}
+    print(f"[2h] guard fired after batch 2: drained after "
+          f"{dsr.n_batches} batches ({dsr.n_pairs} pairs, the one being "
+          f"pulled lands); each accepted batch equals map_stream's")
+    del direct, accepted
+    torch.cuda.synchronize()
+    rest_launches = _cuda.launch_counts()
+
+    # 4. serve --chaos as its own process on the card
+    health_path = out_dir / "health.json"
+    health_path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(
+        Path(__file__).resolve().parent / "src")}
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--loop", "stream",
+         "--chaos", "sigterm@0:2", "--health-out", str(health_path)],
+        env=env, capture_output=True, text=True, timeout=600)
+    rest["serve_chaos_s"] = time.time() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"serve --chaos exited {run.returncode}:\n"
+                           f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    served = json.loads(run.stdout)
+    sh = json.loads(health_path.read_text())
+    if sh != served["health"] or (sh["n_hosts"], sh["drain_reason"],
+                                  sh["rounds"]) != (1, "preemption", 3):
+        raise RuntimeError(f"serve --chaos's health ledger is off: {sh}")
+    rest["serve_chaos"] = {k: served[k] for k in (
+        "pairs", "pairs_per_s", "chaos", "mapped_frac", "correct_of_mapped")}
+    rest["launches"] = rest_launches
+    rest["seconds"] = time.time() - t_rest
+    record["rest"] = rest
+    print(f"[2h] serve --chaos sigterm@0:2 (its own process, "
+          f"{rest['serve_chaos_s']:.1f} s): {served['pairs']} pairs, drained "
+          f"by preemption after {sh['rounds']} batches; health.json read "
+          f"back; mapped {served['mapped_frac']:.4f}")
+    print(f"[2h] launches over this phase: {rest_launches}; "
+          f"{rest['seconds']:.1f} s")
+    if not all(rest_launches[k] > 0 for k in PAIR_KERNELS + LONG_KERNELS):
+        raise RuntimeError(f"a kernel of the mapper never launched in 2h: "
+                           f"{rest_launches}")
+    torch.cuda.empty_cache()
+
     # phase 3's device times read again after the serving phases, which
     # hold the store, the doors and the baseline's ~18 GiB of DP rows
     after = {n: device_ms(fn, n) for n, fn in timed_runs.items()}
@@ -1869,7 +2100,8 @@ def main() -> int:
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
-        entry["launches"] += sv[name]
+        entry["launches_tune_fleet"] = rest_launches[name]
+        entry["launches"] += sv[name] + rest_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

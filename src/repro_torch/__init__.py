@@ -16,8 +16,12 @@ Sessions are served through `engine.FrontDoor` (continuous batching of
 ragged requests of both lanes), persisted with ``mapper.save`` /
 ``Mapper.load`` / ``mapper.swap_index`` (`engine.index_store`, the JAX
 package's on-disk format), and driven by ``python -m
-repro_torch.launch.serve``; `core.baseline.map_single_end` is the paper's
-full-DP single-end comparison point.
+repro_torch.launch.serve`` (``--chaos``: a fault schedule served through
+the fleet stream, `engine.multihost.map_stream`); `core.baseline.
+map_single_end` is the paper's full-DP single-end comparison point.
+`repro_torch.tune` times the kernels' launch geometry and the pipeline's
+knobs, and a session reads its cache once at build
+(``ExecutionConfig(tune=...)``).
 
 The package also serves a dense LM of repro's substrate (yi-6b and its
 family) through the hand-written flash attention kernel::

@@ -5,11 +5,13 @@ semiglobal Gotoh DP: the read is global, the reference window has free
 leading/trailing gaps.  Each row is vectorized over the batch; the
 horizontal gap is a running max (`torch.cummax`).  These are the plain
 PyTorch versions the `residual_dp` CUDA kernel is held against.
+`gotoh_align_np` is the host-side traceback oracle (numpy).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.scoring import Scoring
@@ -121,3 +123,75 @@ def gotoh_semiglobal_banded(read: torch.Tensor, refwin: torch.Tensor,
     score = torch.max(h, dim=-1).values
     return DPResult(score=score,
                     ref_end=R + c - band + _first_argmax(h))
+
+
+def gotoh_align_np(read: np.ndarray, refwin: np.ndarray,
+                   scoring: Scoring = Scoring()
+                   ) -> tuple[int, list[tuple[str, int]], int]:
+    """Host-side semiglobal Gotoh with traceback (read global, reference
+    window with free end gaps), the oracle of Light Alignment's exactness
+    on single-gap-run inputs.
+
+    Returns ``(score, cigar_runs, ref_begin)``: runs ``[(op, len)]`` with
+    ops in 'MID'.  The end column is the first of the last row's maxima;
+    the traceback prefers a match/mismatch step, then the vertical gap
+    (E, 'I'), then the horizontal one (F, 'D'), and stays in a gap while
+    extending it scores the cell, as the JAX package's oracle does.
+    """
+    read = np.asarray(read)
+    refwin = np.asarray(refwin)
+    R, W = len(read), len(refwin)
+    first = scoring.gap_open + scoring.gap_extend
+    ext = scoring.gap_extend
+    H = np.zeros((R + 1, W + 1), np.int64)
+    E = np.full((R + 1, W + 1), NEG, np.int64)  # read base unaligned, 'I'
+    F = np.full((R + 1, W + 1), NEG, np.int64)  # gap in the read, 'D'
+    for i in range(1, R + 1):
+        H[i, 0] = -(scoring.gap_open + ext * i)
+
+    def sub(i, j):
+        return (scoring.match if read[i - 1] == refwin[j - 1]
+                else -scoring.mismatch)
+
+    for i in range(1, R + 1):
+        for j in range(0, W + 1):
+            E[i, j] = max(H[i - 1, j] - first, E[i - 1, j] - ext)
+            if j > 0:
+                F[i, j] = max(H[i, j - 1] - first, F[i, j - 1] - ext)
+                H[i, j] = max(H[i - 1, j - 1] + sub(i, j), E[i, j], F[i, j])
+            else:
+                H[i, j] = E[i, j]
+    j = int(np.argmax(H[R]))
+    score = int(H[R, j])
+    ops: list[str] = []
+    i = R
+    state = "H"
+    while i > 0:
+        if state == "H":
+            if j > 0 and H[i, j] == H[i - 1, j - 1] + sub(i, j):
+                ops.append("M")
+                i -= 1
+                j -= 1
+            elif H[i, j] == E[i, j]:
+                state = "E"
+            else:
+                state = "F"
+        elif state == "E":
+            ops.append("I")
+            nxt = "E" if E[i, j] == E[i - 1, j] - ext else "H"
+            i -= 1
+            state = nxt
+        else:
+            ops.append("D")
+            nxt = "F" if F[i, j] == F[i, j - 1] - ext else "H"
+            j -= 1
+            state = nxt
+    ref_begin = j
+    ops.reverse()
+    runs: list[tuple[str, int]] = []
+    for op in ops:
+        if runs and runs[-1][0] == op:
+            runs[-1] = (op, runs[-1][1] + 1)
+        else:
+            runs.append((op, 1))
+    return score, runs, ref_begin

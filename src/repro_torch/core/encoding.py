@@ -8,8 +8,11 @@ arithmetic on them runs in int64 and is masked back to 32 bits.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+BASES = "ACGT"
+A, C, G, T = 0, 1, 2, 3
 BASES_PER_WORD = 16  # 2 bits/base, 32-bit words
 MASK32 = 0xFFFFFFFF
 
@@ -23,6 +26,26 @@ def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 def from_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> their unsigned values as int64."""
     return x.to(torch.int64) & MASK32
+
+
+def encode_str(s: str) -> np.ndarray:
+    """Encode an ACGT string (either case) into uint8 codes (host-side
+    helper); any other character raises."""
+    lut = np.full(256, 255, dtype=np.uint8)
+    for i, b in enumerate(BASES):
+        lut[ord(b)] = i
+        lut[ord(b.lower())] = i
+    out = lut[np.frombuffer(s.encode(), dtype=np.uint8)]
+    if (out == 255).any():
+        raise ValueError("non-ACGT character in sequence")
+    return out
+
+
+def decode_to_str(codes) -> str:
+    """uint8 codes (a tensor or an array) -> their ACGT string."""
+    if isinstance(codes, torch.Tensor):
+        codes = codes.cpu().numpy()
+    return "".join(BASES[int(c)] for c in np.asarray(codes))
 
 
 def revcomp(codes: torch.Tensor) -> torch.Tensor:
@@ -55,6 +78,20 @@ def unpack_2bit(words: torch.Tensor, length: int) -> torch.Tensor:
     codes = (from_int32_bits(words)[..., :, None] >> shifts) & 3
     codes = codes.reshape(words.shape[:-1] + (-1,))
     return codes[..., :length].to(torch.uint8)
+
+
+def mismatch_mask_packed(a_words: torch.Tensor,
+                         b_words: torch.Tensor) -> torch.Tensor:
+    """XOR two packed sequences and collapse bit pairs: int32-held words
+    whose bit pair (2i, 2i+1) is nonzero iff base i differs (the low bit
+    of the pair carries it).  The Light Alignment primitive, "simple
+    vectorized logical XOR operators" (§1).  The arithmetic shift of an
+    int32 differs from the uint32 one only in bit 31, which the mask
+    clears, so the bits equal the JAX package's uint32 result."""
+    x = a_words ^ b_words
+    lo = x & 0x55555555
+    hi = (x >> 1) & 0x55555555
+    return lo | hi
 
 
 def packed_gather_coords(n_ref_words: int, length: int) -> tuple[int, int]:

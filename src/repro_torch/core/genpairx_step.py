@@ -71,7 +71,8 @@ def make_genpair_serve_step(mesh, pipe_cfg: PipelineConfig,
         locs = locs_fn(shard, buckets, K)        # (2B, S, K), mate 1 first
         B = r1.shape[0]
         fe = frontend_merge_filter(locs[:B], locs[B:], offs, cfg.delta,
-                                   cfg.max_candidates, backend=backend)
+                                   cfg.max_candidates,
+                                   block=cfg.frontend_block, backend=backend)
         return (fe.n_hits1 > 0) & (fe.n_hits2 > 0), fe
 
     def serve_step(shard: SeedMapShard, ref: torch.Tensor,

@@ -19,7 +19,8 @@ start uncertainty (half a vote bin plus ``max_gap`` of indel drift).
   voting      `location_vote_ref`                 location_vote
   anchor DP   `gotoh_semiglobal_banded`           banded_sw
 
-The session entry points are ``Mapper.map_long`` / ``map_long_stream``.
+The session entry points are ``Mapper.map_long`` / ``map_long_stream``;
+`map_long_reads` is the one-shot entry.
 """
 from __future__ import annotations
 
@@ -60,6 +61,10 @@ class LongReadConfig:
     # a bin of the window centre, plus max_gap of indel drift.  Any value
     # >= segment_len + 2*dp_halo is the exact unbanded DP.
     dp_band: int | None = None
+    # Warps (reads) a block of the location_vote kernel; None keeps its
+    # hand-picked default (the tuner fills it, as the pipe config's
+    # `*_block` knobs).  The result does not depend on it.
+    vote_block: int | None = None
 
     def band(self) -> int:
         """Resolved anchor-DP band half-width (`dp_band` or derived)."""
@@ -177,12 +182,13 @@ def map_long_impl(
         fe = segment_pair_frontend(
             rows, reads, cfg.segment_len, cfg.segment_stride, p.seed_len,
             p.seeds_per_read, sm.config.hash_seed, delta, p.max_candidates,
-            backend=backend)
+            block=p.frontend_block, backend=backend)
         pos1, n_cand = fe.pos1, fe.n
 
     # -- Location Voting ---------------------------------------------------
     diag = candidate_diagonals(pos1, S - 1, cfg.segment_stride)
-    vote = location_vote(diag, cfg.vote_bin, backend=backend)
+    vote = location_vote(diag, cfg.vote_bin, block=cfg.vote_block,
+                         backend=backend)
     mapped = vote.votes > 0
     position = vote.win_bin * cfg.vote_bin          # int32, wraps as JAX's
 
@@ -199,6 +205,19 @@ def map_long_impl(
         n_candidates=n_cand.reshape(B, S - 1).sum(-1).to(torch.int32),
         n_valid=torch.ones(B, dtype=torch.bool, device=reads.device),
     )
+
+
+def map_long_reads(
+    sm: SeedMap | PaddedSeedMap, ref: torch.Tensor, reads,
+    cfg: LongReadConfig = LongReadConfig(),
+) -> LongReadResult:
+    """One-shot long-read mapping on the device ``ref`` lives on: the
+    kernels on a CUDA ``ref`` (seed_buckets, pair_frontend, location_vote,
+    banded_sw, as `Mapper.map_long` launches them), their plain versions on
+    the CPU.  ``reads`` is a (B, L) uint8 tensor or array, moved to that
+    device.  The session entry is `Mapper.map_long`."""
+    reads = torch.as_tensor(reads, dtype=torch.uint8, device=ref.device)
+    return map_long_impl(sm, ref, reads, cfg)
 
 
 def long_stage_stat_counts(res: LongReadResult) -> dict:

@@ -70,6 +70,14 @@ class PipelineConfig:
     # 2-bit packed reference for every window gather; None keeps the
     # entry point's default (unpacked).
     packed_ref: bool | None = None
+    # Launch geometry of the pair kernels: warps (pairs) a block of
+    # pair_frontend and merge_filter, pairs a block of candidate_align,
+    # warps (slots) a block of residual_dp.  None keeps each kernel's
+    # hand-picked default; the tuner (`repro_torch.tune`) fills them.  The
+    # result does not depend on them.
+    frontend_block: int | None = None
+    light_block: int | None = None
+    residual_block: int | None = None
 
     def threshold(self) -> int:
         if self.accept_threshold is not None:
@@ -200,7 +208,8 @@ def _residual_dp_stage(ref, reads1, reads2_fwd, pair, passed, light_ok,
     dp = residual_pair_dp(
         ref, reads1[idx], reads2_fwd[idx], pair.pos1[idx], pair.pos2[idx],
         need1, need2, cfg.dp_pad, band=cfg.band(), scoring=cfg.scoring,
-        packed_ref=packed, backend=backend, kref=kref)
+        packed_ref=packed, backend=backend, kref=kref,
+        block=cfg.residual_block)
     dp_s1, dp_s2 = dp.score1, dp.score2
     if split is not None:
         dp_s1, dp_s2 = (x[:cap] for x in split.gather((dp_s1, dp_s2)))
@@ -258,7 +267,8 @@ def map_pairs_impl(
                 else padded_rows_device(sm, cfg.max_locs_per_seed))
         fe = pair_frontend(rows, r1, r2_fwd, cfg.seed_len,
                            cfg.seeds_per_read, sm.config.hash_seed, cfg.delta,
-                           cfg.max_candidates, backend=backend)
+                           cfg.max_candidates, block=cfg.frontend_block,
+                           backend=backend)
         return (fe.n_hits1 > 0) & (fe.n_hits2 > 0), fe
 
     return map_batch(front, ref, reads1, reads2, cfg, backend, kref, split)
@@ -299,7 +309,7 @@ def map_batch(front, ref: torch.Tensor, reads1: torch.Tensor,
         ref, r1, r2_fwd, cands.pos1, cands.pos2, cfg.max_gap,
         scoring=cfg.scoring, threshold=cfg.threshold(), mode=cfg.light_mode,
         prescreen_top=cfg.prescreen(), packed_ref=packed, backend=backend,
-        kref=kref)
+        kref=kref, block=cfg.light_block)
     if split is not None:
         had_hits, passed, *fields = split.gather((had_hits, passed, *pair))
         pair = type(pair)(*fields)

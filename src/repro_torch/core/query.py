@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.seedmap import INVALID_LOC, SeedMap
+from repro_torch.core.seedmap import INVALID_LOC, PaddedSeedMap, SeedMap
 from repro_torch.core.seeding import SeedSet
 
 
@@ -48,6 +48,14 @@ def query_csr(sm: SeedMap, hashes: torch.Tensor, max_locs_per_seed: int
                           device=dev)
     locs = torch.where(valid, locs, INVALID_LOC)
     return locs, count.to(torch.int32)
+
+
+def query_padded(psm: PaddedSeedMap, hashes: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row gather from the padded layout (fixed K = padded_cap): hashes
+    (...,) -> rows (..., K) int32 and counts (...,) int32."""
+    bucket = hashes.to(torch.int64) & (psm.config.table_size - 1)
+    return psm.rows[bucket], psm.counts[bucket]
 
 
 def padded_rows_device(sm: SeedMap, cap: int) -> torch.Tensor:

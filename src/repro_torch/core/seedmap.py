@@ -150,3 +150,18 @@ def to_padded(sm: SeedMap, cap: int | None = None) -> PaddedSeedMap:
         keep = rank < cap
         rows[bucket[keep] * cap + rank[keep]] = sm.locations[keep]
     return PaddedSeedMap(rows=rows.view(T, cap), counts=counts, config=cfg)
+
+
+def seedmap_stats(sm: SeedMap) -> dict:
+    """Observation-2 style stats: locations per non-empty bucket etc. (one
+    host fetch of the counts)."""
+    counts = (sm.offsets[1:] - sm.offsets[:-1]).to(torch.int64)
+    nonzero = counts[counts > 0]
+    return {
+        "table_size": sm.config.table_size,
+        "n_locations": int(sm.locations.shape[0]),
+        "n_nonempty_buckets": int(nonzero.numel()),
+        "mean_locs_per_nonempty_bucket": (
+            float(nonzero.double().mean()) if nonzero.numel() else 0.0),
+        "max_locs_per_bucket": int(counts.max()) if counts.numel() else 0,
+    }

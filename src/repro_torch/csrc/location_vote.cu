@@ -12,7 +12,9 @@
 // Bound on the H100: 4*M bytes in and 8 bytes out per read, and the
 // O(M log M) sort the function needs; at M = 256 both are far below a
 // microsecond for 2,048 reads, so launch latency bounds it.  Design: one
-// warp per read, up to 8 reads a block.  A row is mostly INVALID_LOC (a
+// warp per read, 8 reads a block by default (`warps`, a launch argument
+// the tuner sets, up to 32; reads are independent, so the result does not
+// depend on it).  A row is mostly INVALID_LOC (a
 // long read from a unique locus leaves about one candidate per
 // pseudo-pair), so the warp reads its row (16-byte loads where the rows
 // are 16-byte aligned, else one int per lane; no load leaves the tensor),
@@ -32,7 +34,8 @@ namespace {
 
 using repro::INVALID_LOC;
 
-constexpr int MAX_WARPS = 8;              // reads a block
+constexpr int DEFAULT_WARPS = 8;          // reads a block
+constexpr int MAX_WARPS = 32;             // 1,024 threads
 constexpr int MAX_SHARED = 48 * 1024;     // bytes of a block's slices
 constexpr unsigned ALL = 0xffffffffu;
 
@@ -125,16 +128,19 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) location_vote_kernel(
 
 }  // namespace
 
-// diag: (B, M) int32, M <= 12,288; win_bin, votes: (B,) int32.  Up to 8
-// reads a block, fewer where their slices of round_up(M, 4) ints pass
-// 48 KB (one read a block at M = 12,288).
+// diag: (B, M) int32, M <= 12,288; win_bin, votes: (B,) int32; warps:
+// reads a block, checked by the wrapper (kernels/location_vote/ops.py::
+// vote_warps) against 1,024 threads and 48 KB of slices of round_up(M, 4)
+// ints; <= 0 for the default, 8 or fewer where their slices pass 48 KB
+// (one read a block at M = 12,288).
 extern "C" int location_vote_launch(const void* diag, int B, int M,
                                     int vote_bin, void* win_bin, void* votes,
-                                    void* stream) {
+                                    int warps, void* stream) {
   if (B == 0) return 0;
   const int slice = (M + 3) & ~3;
-  const int warps = std::max(
-      1, std::min(MAX_WARPS, MAX_SHARED / (4 * std::max(slice, 4))));
+  if (warps <= 0)
+    warps = std::max(1, std::min(DEFAULT_WARPS,
+                                 MAX_SHARED / (4 * std::max(slice, 4))));
   const unsigned blocks = static_cast<unsigned>((B + warps - 1) / warps);
   const size_t smem = static_cast<size_t>(warps) * slice * sizeof(int);
   const bool vec =

@@ -15,9 +15,10 @@
 // (2C+3)*4 (880 bytes at S=3, K=32, C=8) and needs only a stable sort, a
 // searchsorted and a linear dedup/compaction of the few valid starts per
 // mate (O(h log h), h << M = 96), so bytes bound it.  Design: one warp
-// per pair, 8 pairs per block, as in pair_frontend.cu; lane l reads
-// element 32t + l of the pair's rows of the (B, M) inputs, so a warp's
-// loads are coalesced, with 64-bit row offsets.
+// per pair, `warps` pairs per block (8 by default, as in
+// pair_frontend.cu); lane l reads element 32t + l of the pair's rows of
+// the (B, M) inputs, so a warp's loads are coalesced, with 64-bit row
+// offsets.
 #include "merge_filter.cuh"
 
 namespace {
@@ -53,14 +54,15 @@ __global__ void merge_filter_kernel(
 }  // namespace
 
 // locs1/locs2: (B, S*K) int32 seed-major locations; pos1/pos2: (B, C)
-// int32; n_out/nh1/nh2: (B,) int32.
+// int32; n_out/nh1/nh2: (B,) int32; warps: pairs per block, <= 0 for
+// merge_filter_warps(S * K).
 extern "C" int merge_filter_launch(const void* locs1, const void* locs2,
                                    int B, int S, int K, const void* offs_host,
                                    int delta, int C, void* pos1, void* pos2,
                                    void* n_out, void* nh1, void* nh2,
-                                   void* stream) {
+                                   int warps, void* stream) {
   if (B == 0) return 0;
-  const int warps = repro::merge_filter_warps(S * K);
+  if (warps <= 0) warps = repro::merge_filter_warps(S * K);
   merge_filter_kernel<<<(B + warps - 1) / warps, 32 * warps,
                         warps * repro::merge_filter_warp_smem(S * K),
                         static_cast<cudaStream_t>(stream)>>>(

@@ -43,8 +43,10 @@ inline size_t merge_filter_warp_smem(int M) {
   return 4 * static_cast<size_t>(M) * sizeof(int);
 }
 
-// Warps (pairs) per block: 8, or fewer where 8 warps' shared memory
-// would pass 48 KB.  The wrapper refuses M whose one warp does not fit.
+// Default warps (pairs) per block: 8, or fewer where 8 warps' shared
+// memory would pass 48 KB.  The wrapper refuses M whose one warp does not
+// fit, and any explicit count past 1,024 threads or 48 KB
+// (kernels/pair_frontend/ops.py::frontend_warps).
 inline int merge_filter_warps(int M) {
   const int w = static_cast<int>(48 * 1024 / merge_filter_warp_smem(M));
   return w > 8 ? 8 : (w < 1 ? 1 : w);

@@ -13,10 +13,12 @@
 // (K = 32), about 870 bytes with its ids and outputs, and needs only a
 // stable sort, a searchsorted and a linear dedup/compaction of the few
 // valid starts per mate (O(h log h), h << M = 96), so bytes bound it.
-// Design: one warp per pair, 8 pairs per block, running
-// merge_filter.cuh's warp block; lane l reads slot l of a row (a row of
-// K = 32 is one coalesced 128-byte load) with 64-bit row indices, and
-// the warp sorts only the valid starts.  The bucket ids come straight
+// Design: one warp per pair, `warps` pairs per block (8 by default; a
+// launch argument the tuner sets), running merge_filter.cuh's warp block;
+// lane l reads slot l of a row (a row of K = 32 is one coalesced 128-byte
+// load) with 64-bit row indices, and the warp sorts only the valid
+// starts.  Pairs are independent, so the result does not depend on
+// `warps`.  The bucket ids come straight
 // from seed_buckets: no bucket*K offset tables.
 #include "merge_filter.cuh"
 
@@ -56,14 +58,16 @@ __global__ void pair_frontend_kernel(
 }  // namespace
 
 // rows: (T, K) int32; buckets: (2B, S) int32 (mate 1 rows first);
-// pos1/pos2: (B, C) int32; n_out/nh1/nh2: (B,) int32.
+// pos1/pos2: (B, C) int32; n_out/nh1/nh2: (B,) int32; warps: pairs per
+// block, <= 0 for merge_filter_warps(S * K).
 extern "C" int pair_frontend_launch(const void* rows, int K,
                                     const void* buckets, int B, int S,
                                     const void* offs_host, int delta, int C,
                                     void* pos1, void* pos2, void* n_out,
-                                    void* nh1, void* nh2, void* stream) {
+                                    void* nh1, void* nh2, int warps,
+                                    void* stream) {
   if (B == 0) return 0;
-  const int warps = repro::merge_filter_warps(S * K);
+  if (warps <= 0) warps = repro::merge_filter_warps(S * K);
   pair_frontend_kernel<<<(B + warps - 1) / warps, 32 * warps,
                          warps * repro::merge_filter_warp_smem(S * K),
                          static_cast<cudaStream_t>(stream)>>>(

@@ -13,7 +13,9 @@
 //
 // Bound on the H100: ~R*(2*band+1)*14 integer ops per live slot against a
 // ~200-byte window, so integer operations bound it.  Design: one warp per
-// (row, mate) slot, WARPS warps per block, no compaction: a warp whose
+// (row, mate) slot, `warps` warps per block (8 by default and at most; a
+// launch argument the tuner sets; slots are independent, so the result
+// does not depend on it), no compaction: a warp whose
 // slot needs no DP writes NEG / 0 and exits, which costs less than
 // compacting the live slots would.  A live warp computes its window's
 // start with kernels/_util.window_starts's clamp, stages the read and the
@@ -29,7 +31,11 @@ using repro::INVALID_LOC;
 using repro::NEG;
 using repro::Scoring;
 
-constexpr int WARPS = 8;   // warps (slots) per block
+// Warps (slots) per block: 8 by default, and the most the kernel's
+// __launch_bounds__ admit.  Bounds of 256 threads leave ptxas the register
+// budget the CPL 32 variants use (up to 245); wider bounds change the
+// allocation of every variant (kernels/residual_dp/ops.py::residual_warps).
+constexpr int MAX_WARPS = 8;
 
 // The window of a slot, as kernels/_util.window_starts computes it: an
 // invalid slot reads the window at 0; packed, start pos - dp_pad (wrapping
@@ -56,7 +62,7 @@ __device__ repro::RefWindow<PACKED> slot_window(const void* ref, int pos,
 }
 
 template <int CPL, bool FULL, bool PACKED>
-__global__ void __launch_bounds__(WARPS * 32) residual_dp_kernel(
+__global__ void __launch_bounds__(MAX_WARPS * 32) residual_dp_kernel(
     const void* __restrict__ ref, const uint8_t* __restrict__ reads1,
     const uint8_t* __restrict__ reads2, const int* __restrict__ pos1,
     const int* __restrict__ pos2, const uint8_t* __restrict__ need1,
@@ -65,7 +71,8 @@ __global__ void __launch_bounds__(WARPS * 32) residual_dp_kernel(
     Scoring sc, int* __restrict__ score, int* __restrict__ end) {
   extern __shared__ uint8_t sh[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long slot = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  const long long slot =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
   if (slot >= 2LL * N) return;
   const long long row = slot >> 1;
   const int mate = static_cast<int>(slot & 1);
@@ -98,14 +105,15 @@ __global__ void __launch_bounds__(WARPS * 32) residual_dp_kernel(
 }
 
 template <int CPL, bool FULL, bool PACKED>
-int launch(long long blocks, size_t smem, cudaStream_t s, const void* ref,
+int launch(long long blocks, int warps, size_t smem, cudaStream_t s,
+           const void* ref,
            const void* reads1, const void* reads2, const void* pos1,
            const void* pos2, const void* need1, const void* need2, int N,
            int R, int W, int band, int dp_pad, int ref_len, int win_hi,
            int pad, int wleft, int wbytes, Scoring sc, void* score,
            void* end) {
   residual_dp_kernel<CPL, FULL, PACKED>
-      <<<static_cast<unsigned>(blocks), WARPS * 32, smem, s>>>(
+      <<<static_cast<unsigned>(blocks), warps * 32, smem, s>>>(
           ref, static_cast<const uint8_t*>(reads1),
           static_cast<const uint8_t*>(reads2), static_cast<const int*>(pos1),
           static_cast<const int*>(pos2), static_cast<const uint8_t*>(need1),
@@ -116,15 +124,16 @@ int launch(long long blocks, size_t smem, cudaStream_t s, const void* ref,
 }
 
 template <int CPL>
-int launch_cpl(bool full, bool packed, long long blocks, size_t smem,
-               cudaStream_t s, const void* ref, const void* reads1,
-               const void* reads2, const void* pos1, const void* pos2,
+int launch_cpl(bool full, bool packed, long long blocks, int warps,
+               size_t smem, cudaStream_t s, const void* ref,
+               const void* reads1, const void* reads2, const void* pos1,
+               const void* pos2,
                const void* need1, const void* need2, int N, int R, int W,
                int band, int dp_pad, int ref_len, int win_hi, int pad,
                int wleft, int wbytes, Scoring sc, void* score, void* end) {
 #define REPRO_ARGS                                                          \
-  blocks, smem, s, ref, reads1, reads2, pos1, pos2, need1, need2, N, R, W,  \
-      band, dp_pad, ref_len, win_hi, pad, wleft, wbytes, sc, score, end
+  blocks, warps, smem, s, ref, reads1, reads2, pos1, pos2, need1, need2, N, \
+      R, W, band, dp_pad, ref_len, win_hi, pad, wleft, wbytes, sc, score, end
   if (full)
     return packed ? launch<CPL, true, true>(REPRO_ARGS)
                   : launch<CPL, true, false>(REPRO_ARGS);
@@ -141,25 +150,27 @@ int launch_cpl(bool full, bool packed, long long blocks, size_t smem,
 // INVALID_LOC for none; need1/need2: (N,) bool; win_hi: the packed window
 // start's clamp; cpl: frame slots per lane, one of 1, 2, 3, 4, 6, 8, 16, 32,
 // with 32 * cpl >= the frame's columns; score/end: (N, 2) int32, slot
-// 2*row + mate.  band < 0: full DP.
+// 2*row + mate.  band < 0: full DP.  warps: slots a block, <= 0 for 8;
+// the wrapper holds it to MAX_WARPS and 48 KB of shared memory.
 extern "C" int residual_dp_launch(
     const void* ref, int packed, const void* reads1, const void* reads2,
     const void* pos1, const void* pos2, const void* need1, const void* need2,
     int N, int R, int W, int band, int dp_pad, int ref_len, int win_hi,
     int pad, int cpl, int match, int mismatch, int gap_open, int gap_extend,
-    void* score, void* end, void* stream) {
+    void* score, void* end, int warps, void* stream) {
   if (N == 0) return 0;
+  if (warps <= 0) warps = MAX_WARPS;
   const bool full = band < 0;
   const repro::WarpStage ws = repro::gotoh_warp_stage(R, W, band, cpl);
   const size_t smem =
-      static_cast<size_t>(WARPS) * (((R + 3) & ~3) + ws.bytes);
-  const long long blocks = (2LL * N + WARPS - 1) / WARPS;
+      static_cast<size_t>(warps) * (((R + 3) & ~3) + ws.bytes);
+  const long long blocks = (2LL * N + warps - 1) / warps;
   const Scoring sc{match, mismatch, gap_open, gap_extend};
   auto s = static_cast<cudaStream_t>(stream);
 #define REPRO_ARGS                                                          \
-  full, packed != 0, blocks, smem, s, ref, reads1, reads2, pos1, pos2,      \
-      need1, need2, N, R, W, band, dp_pad, ref_len, win_hi, pad, ws.left,   \
-      ws.bytes, sc, score, end
+  full, packed != 0, blocks, warps, smem, s, ref, reads1, reads2, pos1,    \
+      pos2, need1, need2, N, R, W, band, dp_pad, ref_len, win_hi, pad,      \
+      ws.left, ws.bytes, sc, score, end
   switch (cpl) {
     case 1: return launch_cpl<1>(REPRO_ARGS);
     case 2: return launch_cpl<2>(REPRO_ARGS);

@@ -1,6 +1,8 @@
 """The session API: `Mapper` + `ExecutionConfig`, the continuous-batching
-front door (`FrontDoor`, `ServeStats`) and the on-disk index store
-(`Mapper.save` / `load` / `swap_index`)."""
+front door (`FrontDoor`, `ServeStats`), the on-disk index store
+(`Mapper.save` / `load` / `swap_index`) and the fleet stream
+(`engine.multihost.map_stream`: per-host generators, one global batch a
+round, the lockstep keep-alive)."""
 from repro_torch.core.long_read import LongReadConfig, LongReadResult
 from repro_torch.core.pipeline import MapResult
 from repro_torch.engine.config import ExecutionConfig

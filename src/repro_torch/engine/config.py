@@ -54,6 +54,12 @@ class ExecutionConfig:
                   `core.genpairx_step`); False replicates the index and
                   runs data-parallel.  Requires ``mesh``; the reference
                   is packed by default on this plan.
+    tune:         read the tuner's cache (`repro_torch.tune`) once, at
+                  build: a path names the cache file, True is its default
+                  path, None (default) and False never tune.  Cached
+                  winners fill only the knobs the configs left unset:
+                  explicit config > tune cache > defaults.  No
+                  environment variable is read.
     """
 
     device: str = "cuda"
@@ -65,6 +71,7 @@ class ExecutionConfig:
     batch_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
     shard_index: bool = False
+    tune: bool | str | None = None
 
     def __post_init__(self):
         if self.shard_index and self.mesh is None:
@@ -104,30 +111,53 @@ class ExecutionConfig:
         return dev
 
 
-def resolved_pipeline(pipe_cfg: PipelineConfig, exec_cfg: ExecutionConfig
+def _tune_batch(exec_cfg: ExecutionConfig) -> int:
+    """The batch a session's tune-cache buckets are looked up at."""
+    return exec_cfg.stream_batch or 1024
+
+
+def resolved_pipeline(pipe_cfg: PipelineConfig, exec_cfg: ExecutionConfig,
+                      tune_cache: dict | None = None
                       ) -> tuple[PipelineConfig, str]:
     """Resolve every deferred knob for the session: the pipeline config
     with a concrete ``packed_ref`` (default: packed on the sharded-index
-    plan, unpacked otherwise), and the backend of every step."""
+    plan, unpacked otherwise), and the backend of every step.
+    ``tune_cache`` (entries of `repro_torch.tune`) fills the knobs the
+    config left unset first, so explicit settings win over cached
+    winners."""
     dev = exec_cfg.torch_device()
+    backend = resolve_backend(exec_cfg.backend, dev)
+    if tune_cache:
+        from repro_torch.tune import apply_tuned_pipeline
+        pipe_cfg = apply_tuned_pipeline(pipe_cfg, tune_cache,
+                                        _tune_batch(exec_cfg), backend,
+                                        exec_packed=exec_cfg.packed_ref)
     packed = exec_cfg.packed_ref
     if packed is None:
         packed = pipe_cfg.packed(default=exec_cfg.shard_index)
-    return (dataclasses.replace(pipe_cfg, packed_ref=bool(packed)),
-            resolve_backend(exec_cfg.backend, dev))
+    return dataclasses.replace(pipe_cfg, packed_ref=bool(packed)), backend
 
 
-def resolved_long_read(pipe_cfg: PipelineConfig, exec_cfg: ExecutionConfig
-                       ) -> LongReadConfig:
+def resolved_long_read(pipe_cfg: PipelineConfig, exec_cfg: ExecutionConfig,
+                       tune_cache: dict | None = None) -> LongReadConfig:
     """The session's long-read lane config, resolved once at build.
 
     Two knobs of the lane's ``pipe`` are forced to the session's resolved
     values because they are tied to state built once: ``max_locs_per_seed``
     (the padded SeedMap row width) and ``packed_ref`` (the reference
-    flavor).  Every other lane knob keeps the lane config's own value.
-    ``pipe_cfg`` must already be resolved.
+    flavor).  ``tune_cache`` fills the lane's unset knobs (``vote_block``,
+    and the ``pipe``'s as `resolved_pipeline` does); every other lane knob
+    keeps the lane config's own value.  ``pipe_cfg`` must already be
+    resolved.
     """
     lr = exec_cfg.long_read or LongReadConfig()
-    return dataclasses.replace(lr, pipe=dataclasses.replace(
+    lane_pipe = dataclasses.replace(
         lr.pipe, max_locs_per_seed=pipe_cfg.max_locs_per_seed,
-        packed_ref=pipe_cfg.packed_ref))
+        packed_ref=pipe_cfg.packed_ref)
+    if tune_cache:
+        from repro_torch.tune import apply_tuned_long_read
+        backend = resolve_backend(exec_cfg.backend, exec_cfg.torch_device())
+        lr = apply_tuned_long_read(lr, tune_cache, _tune_batch(exec_cfg),
+                                   backend)
+        lane_pipe, _ = resolved_pipeline(lane_pipe, exec_cfg, tune_cache)
+    return dataclasses.replace(lr, pipe=lane_pipe)

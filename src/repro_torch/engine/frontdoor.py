@@ -70,6 +70,7 @@ from repro_torch.engine.stats import (
     fetch_stage_totals,
     init_stage_totals,
 )
+from repro_torch.engine.multihost import fleet_batch_target
 from repro_torch.engine.stream import pad_tail, to_device, tree_map
 from repro_torch.runtime.preemption import PreemptionGuard
 from repro_torch.runtime.watchdog import (
@@ -175,7 +176,7 @@ class FrontDoor:
         self._inflight = None        # (lane, res, spans, t_dispatch, event)
         self._deferred = 0           # pair batches served past a long backlog
         self._draining = False
-        self._fleet_degraded = False  # any peer host out of HEALTHY
+        self._fleet_states = ()      # the peers' watchdog states
         self.stats = ServeStats()
         self.requests: list[Request] = []
 
@@ -240,16 +241,17 @@ class FrontDoor:
         """Fold one keep-alive round's per-host control words (dicts of
         ``host``, ``have``, ``state``, ``draining``, ``error``) into this
         door's scheduling: any peer out of HEALTHY shrinks the coalescing
-        target (one slow host slows every collective dispatch), and a
-        draining or errored peer triggers the coordinated drain."""
+        target (one slow host slows every collective dispatch;
+        `multihost.fleet_batch_target`), and a draining or errored peer
+        triggers the coordinated drain.  `multihost.door_health` makes it
+        a fleet stream's ``on_health`` callback."""
         for s in states:
             self.stats.observe_host(
                 s["host"], have=s.get("have", True),
                 state=s.get("state", HEALTHY),
                 draining=s.get("draining", False),
                 error=s.get("error", False))
-        self._fleet_degraded = any(
-            s.get("state", HEALTHY) != HEALTHY for s in states)
+        self._fleet_states = tuple(s.get("state", HEALTHY) for s in states)
         if any(s.get("draining") or s.get("error") for s in states):
             self.request_drain("fleet")
 
@@ -258,9 +260,9 @@ class FrontDoor:
         """Coalescing fill target: full batches while HEALTHY, degraded
         otherwise (a straggling step, local or anywhere in the fleet,
         should shorten waits, not grow them)."""
-        if self._watchdogs[lane].state != HEALTHY or self._fleet_degraded:
-            return max(1, int(self.stream_batch * self.config.degrade_factor))
-        return self.stream_batch
+        return fleet_batch_target(
+            (self._watchdogs[lane].state, *self._fleet_states),
+            self.stream_batch, self.config.degrade_factor)
 
     def _pick_lane(self, force: bool = False) -> str | None:
         """Starvation-free priority pick: pairs first, but a backlogged

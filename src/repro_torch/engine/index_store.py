@@ -12,9 +12,11 @@ identical session without calling `build_seedmap`.
 The format is the JAX package's, byte for byte: the same manifest keys,
 the same array names per layout, int32 index payloads and uint32 packed
 words.  Stores move between the two packages either way.  A store saved
-here lacks the JAX configs' per-family kernel backends and launch blocks;
-the JAX package fills them with its defaults on load, and this package
-drops them (`convert.config_from_fields`).
+here lacks the JAX configs' per-family kernel backends; the JAX package
+fills them with its defaults on load.  This package drops them, and the
+TPU launch blocks beside them, from a JAX store
+(`convert.config_from_fields`); its own launch geometry (the ``*_block``
+fields, warps or pairs a block of its kernels) round-trips.
 
 Store layout (a directory)::
 

@@ -85,8 +85,12 @@ def _as_device(x, device: torch.device, dtype) -> torch.Tensor:
 
 
 def _mask_tail(res, n):
-    """Set a step result's ``n_valid``: its first ``n`` rows are real."""
+    """Set a step result's ``n_valid``: its first ``n`` rows are real, or
+    the rows a (B,) bool tensor ``n`` marks (a fleet stream pads each
+    host's rows inside the batch, `engine.multihost`)."""
     valid = res.n_valid
+    if isinstance(n, torch.Tensor):
+        return res._replace(n_valid=n.to(valid.device))
     return res._replace(
         n_valid=torch.arange(valid.shape[0], device=valid.device) < n)
 
@@ -100,7 +104,8 @@ class Mapper:
 
     def __init__(self, *, index, ref: torch.Tensor, pipe_cfg: PipelineConfig,
                  exec_cfg: ExecutionConfig, device: torch.device,
-                 backend: str, sm_config: SeedMapConfig):
+                 backend: str, sm_config: SeedMapConfig,
+                 tune_entries: dict | None = None):
         self.index = index           # SeedMap | PaddedSeedMap | SeedMapShard
         self.ref = ref               # uint8 bases or int32 packed words
         self.pipe_cfg = pipe_cfg     # fully resolved
@@ -109,9 +114,9 @@ class Mapper:
         self.backend = backend       # "cuda" or "torch"
         self.sm_config = sm_config   # the config of the index it was given
         self.kref = self._kernel_ref(ref)
-        # the tune-cache snapshot of the store it was loaded from, passed
-        # through unchanged by `save` (this package has no tuner)
-        self._tune_entries: dict = {}
+        # the tune-cache entries the session resolved with (or its store's
+        # snapshot, `load`), written by `save`
+        self._tune_entries: dict = dict(tune_entries or {})
         mesh = exec_cfg.mesh
         # this rank's rows of each global batch (None: one device)
         self._split = (None if mesh is None else
@@ -123,7 +128,8 @@ class Mapper:
                 mesh, pipe_cfg, index.config, backend, exec_cfg.batch_axes,
                 exec_cfg.model_axis, self.kref)
         else:
-            self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg)
+            self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg,
+                                             self._tune_entries)
 
     def _kernel_ref(self, ref: torch.Tensor):
         """The reference padded once for both window kernels (CUDA only)."""
@@ -158,11 +164,16 @@ class Mapper:
         (``shard_index=True``) takes a CSR `SeedMap`, splits it by bucket
         range over the mesh's model axis on the host and keeps this rank's
         shard on its device.
+
+        The tune cache (`ExecutionConfig.tune`) is read here, once; its
+        winners fill only the knobs the configs left unset.
         """
+        from repro_torch.tune import session_cache
         exec_cfg = exec_cfg or ExecutionConfig()
         device = exec_cfg.torch_device()
+        tune_cache = session_cache(exec_cfg.tune)
         cfg, backend = resolved_pipeline(pipe_cfg or PipelineConfig(),
-                                         exec_cfg)
+                                         exec_cfg, tune_cache)
         packed_in = isinstance(ref, torch.Tensor) and ref.dtype == torch.int32
         ref = _as_device(ref, device, torch.int32 if packed_in
                          else torch.uint8)
@@ -177,7 +188,7 @@ class Mapper:
             index = ssm.shard(mesh.get_local_rank(axis), device)
             return cls(index=index, ref=ref_arr, pipe_cfg=cfg,
                        exec_cfg=exec_cfg, device=device, backend=backend,
-                       sm_config=sm.config)
+                       sm_config=sm.config, tune_entries=tune_cache)
         if cfg.packed_ref:
             ref_arr = ref if packed_in else pack_2bit(ref)
         elif packed_in:
@@ -197,7 +208,8 @@ class Mapper:
         else:
             index = to_padded(sm, cap=cfg.max_locs_per_seed)
         return cls(index=index, ref=ref_arr, pipe_cfg=cfg, exec_cfg=exec_cfg,
-                   device=device, backend=backend, sm_config=sm.config)
+                   device=device, backend=backend, sm_config=sm.config,
+                   tune_entries=tune_cache)
 
     # ----------------------------------------------------- index store ---
     def save(self, path) -> str:
@@ -225,8 +237,11 @@ class Mapper:
 
         The store's configs are already resolved, so the session maps
         exactly as the one that saved it.  ``exec_cfg`` supplies the
-        execution side (device, stream batch, mesh); with ``long_read``
-        None it adopts the store's lane config.  An unreadable store warns
+        execution side (device, stream batch, mesh); its ``tune=None`` is
+        forced to False (pass an explicit ``tune`` to fill the store's
+        unset knobs from a cache), and with ``long_read`` None it adopts
+        the store's lane config.  The session keeps the store's tune-cache
+        snapshot, never applied, for `save`.  An unreadable store warns
         and degrades to ``Mapper.build(fallback_ref, seedmap_cfg,
         pipe_cfg, exec_cfg)``; with no ``fallback_ref`` it raises
         `IndexStoreError`, as there is nothing to build from.
@@ -242,6 +257,8 @@ class Mapper:
                 "the session from the reference", stacklevel=2)
             return cls.build(fallback_ref, seedmap_cfg, pipe_cfg, exec_cfg)
         exec_cfg = exec_cfg or ExecutionConfig()
+        if exec_cfg.tune is None:
+            exec_cfg = dataclasses.replace(exec_cfg, tune=False)
         if exec_cfg.long_read is None and payload.lr_cfg is not None \
                 and not exec_cfg.shard_index:
             exec_cfg = dataclasses.replace(exec_cfg,
@@ -290,6 +307,8 @@ class Mapper:
             "swap_index: store differs in shape or config from the live "
             "session; rebuilding in place", stacklevel=2)
         exec_cfg = self.exec_cfg
+        if exec_cfg.tune is None:
+            exec_cfg = dataclasses.replace(exec_cfg, tune=False)
         if payload.lr_cfg is not None:
             exec_cfg = dataclasses.replace(exec_cfg,
                                            long_read=payload.lr_cfg)

@@ -37,6 +37,11 @@ class StreamResult:
     totals: dict
     reduced: object = None
     reads_per_item: int = 2
+    #: the fleet health ledger of a fault-tolerant stream
+    #: (`engine.multihost.map_stream`): per-host batch and keep-alive
+    #: counts, watchdog states, the control-word log and the drain
+    #: reason.  None on a plain single-host stream.
+    health: dict | None = None
 
     @property
     def pairs_per_s(self) -> float:

@@ -7,6 +7,9 @@ packed words with a word/offset split), never materializes the (B, C,
 R+2E) window tensor, aligns only the valid candidates' mates (and a
 winner's invalid mates) and writes the winner's fields and CIGAR runs.  On
 CPU tensors (or with ``backend="torch"``) it runs the plain version.
+``block`` is the kernel's pairs a block (`launch_shape`): None for the
+default, a value the kernel cannot take raises on either backend; the
+result does not depend on it.
 """
 from __future__ import annotations
 
@@ -41,21 +44,29 @@ PAIRS_PER_BLOCK = 48
 MAX_SHARED = 100 * 1024   # bytes per block: two blocks fit an SM
 
 
-def launch_shape(R: int, W: int, C: int) -> tuple[int, int, int, int]:
+def launch_shape(R: int, W: int, C: int, block: int | None = None
+                 ) -> tuple[int, int, int, int]:
     """``(threads, pairs per block, sr, sw)`` of a launch: each thread's
     read and window rows (strides sr, sw) and each pair's 8 C + 1 ints of
-    results and lists fit `MAX_SHARED`."""
+    results and lists fit `MAX_SHARED`.  ``block`` pairs a block, or None
+    for `PAIRS_PER_BLOCK` (fewer where they do not fit); an explicit value
+    that does not fit raises, nothing is clamped."""
     sr, sw = staged_stride(R), staged_stride(W)
     pair_bytes = 4 * (8 * C + 1)
     threads = min(THREADS,
                   (MAX_SHARED - 4 - pair_bytes) // (sr + sw) // 32 * 32)
-    ppb = 0 if threads <= 0 else min(
-        PAIRS_PER_BLOCK, (MAX_SHARED - 4 - threads * (sr + sw)) // pair_bytes)
-    if ppb <= 0:
+    fit = 0 if threads <= 0 else (
+        MAX_SHARED - 4 - threads * (sr + sw)) // pair_bytes
+    if fit <= 0:
         raise ValueError(f"candidate_align: a warp's rows of {R} + {W} "
                          f"bases and a pair of {C} candidates exceed "
                          f"{MAX_SHARED}-byte shared memory")
-    return threads, ppb, sr, sw
+    if block is None:
+        return threads, min(PAIRS_PER_BLOCK, fit), sr, sw
+    if not 1 <= block <= fit:
+        raise ValueError(f"candidate_align takes 1..{fit} pairs a block at "
+                         f"R {R}, W {W}, C {C}, got {block}")
+    return threads, block, sr, sw
 
 
 def candidate_pair_align(
@@ -73,6 +84,7 @@ def candidate_pair_align(
     backend: str = "auto",
     kref: KernelRef | None = None,
     count: torch.Tensor | None = None,
+    block: int | None = None,
 ) -> PairAlignResult:
     """Best-candidate Light Alignment for a batch of read pairs.
 
@@ -83,6 +95,9 @@ def candidate_pair_align(
     backend = resolve_backend(backend, ref.device, family="candidate_align")
     if mode not in ("minsplit", "paper"):
         raise ValueError(f"unknown mode {mode!r}")
+    if block is not None:
+        launch_shape(reads1.shape[1], reads1.shape[1] + 2 * max_gap,
+                     pos1.shape[1], block)
     if backend == "torch":
         return candidate_pair_align_ref(
             ref, reads1, reads2, pos1, pos2, max_gap, scoring, threshold,
@@ -104,7 +119,7 @@ def candidate_pair_align(
     _cuda.check(pos2, "pos2", torch.int32, (B, C))
     if count is not None:
         _cuda.check(count, "count", torch.int32, (1,))
-    threads, ppb, sr, sw = launch_shape(R, W, C)
+    threads, ppb, sr, sw = launch_shape(R, W, C, block)
 
     if kref is None:
         kref = kernel_reference(ref, W, packed_ref)

@@ -2,7 +2,9 @@
 
 On CUDA tensors `location_vote` launches the `location_vote` kernel (one
 warp per read); on CPU tensors (or with ``backend="torch"``) it runs the
-plain version in `ref.py`.
+plain version in `ref.py`.  ``block`` is the kernel's warps (reads) a
+block (`vote_warps`): None for the default, a value the kernel cannot
+take raises on either backend; the result does not depend on it.
 """
 from __future__ import annotations
 
@@ -18,27 +20,50 @@ from repro_torch.kernels.location_vote.ref import (
 
 LOCATION_VOTE = _cuda.register(
     "location_vote", "location_vote_launch",
-    (PTR, INT, INT, INT, PTR, PTR, PTR))
+    (PTR, INT, INT, INT, PTR, PTR, INT, PTR))
 
 MAX_SHARED = 48 * 1024
+MAX_WARPS = 32            # 1,024 threads a block
+DEFAULT_WARPS = 8
+
+
+def vote_warps(M: int, block: int | None = None) -> int:
+    """Warps (reads) a block of the location_vote kernel.
+
+    A warp holds its row's compacted bins, round_up(M, 4) ints, in shared
+    memory.  None gives the default: 8, or as many as fit 48 KB.  An
+    explicit ``block`` past 1,024 threads or 48 KB raises; nothing is
+    clamped."""
+    fit = MAX_SHARED // (4 * max(-(-M // 4) * 4, 4))
+    if fit < 1:
+        raise ValueError(f"a {M}-slot diagonal row exceeds the kernel's "
+                         f"{MAX_SHARED}-byte shared memory")
+    if block is None:
+        return min(DEFAULT_WARPS, fit)
+    top = min(MAX_WARPS, fit)
+    if not 1 <= block <= top:
+        raise ValueError(f"location_vote takes 1..{top} warps a block at "
+                         f"M = {M}, got {block}")
+    return block
 
 
 def location_vote(diag: torch.Tensor, vote_bin: int,
+                  block: int | None = None,
                   backend: str = "auto") -> VoteResult:
     """(B, M) int32 read-start diagonals (INVALID_LOC padded) -> each
     read's winning ``vote_bin``-wide bin and its vote count."""
     backend = resolve_backend(backend, diag.device, family="location_vote")
     if vote_bin <= 0:
         raise ValueError(f"vote_bin must be positive, got {vote_bin}")
+    if block is not None:
+        vote_warps(diag.shape[1], block)
     if backend == "torch":
         return location_vote_ref(diag, vote_bin)
     B, M = diag.shape
     _cuda.check(diag, "diag", torch.int32)
-    if -(-M // 4) * 16 > MAX_SHARED:
-        raise ValueError(f"a {M}-slot diagonal row exceeds the kernel's "
-                         f"{MAX_SHARED}-byte shared memory")
+    warps = vote_warps(M, block)
     win_bin, votes = (torch.empty(B, dtype=torch.int32, device=diag.device)
                       for _ in range(2))
     LOCATION_VOTE(diag.data_ptr(), B, M, vote_bin, win_bin.data_ptr(),
-                  votes.data_ptr(), _cuda.stream_of(diag))
+                  votes.data_ptr(), warps, _cuda.stream_of(diag))
     return VoteResult(win_bin=win_bin, votes=votes)

@@ -9,7 +9,9 @@ already gathered (the sharded-index serve step): one `merge_filter`
 kernel.  Both kernels run csrc/merge_filter.cuh's block, one warp per
 pair, which sorts only each mate's valid starts and probes only mate 1's.
 On CPU tensors (or with ``backend="torch"``) each runs its plain version
-in `ref.py`.
+in `ref.py`.  ``block`` is the kernels' warps (pairs) a block
+(`frontend_warps`): None for the default, a value the kernels cannot take
+raises on either backend; the result does not depend on it.
 """
 from __future__ import annotations
 
@@ -33,21 +35,37 @@ SEED_BUCKETS = _cuda.register(
     (PTR, PTR, INT, INT, PTR, INT, INT, U32, U32, PTR, PTR))
 PAIR_FRONTEND = _cuda.register(
     "pair_frontend", "pair_frontend_launch",
-    (PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR))
+    (PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, INT,
+     PTR))
 
 MERGE_FILTER = _cuda.register(
     "merge_filter", "merge_filter_launch",
-    (PTR, PTR, INT, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR))
+    (PTR, PTR, INT, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, INT,
+     PTR))
 
 MAX_SHARED = 48 * 1024
 MAX_SEEDS = 16
+MAX_WARPS = 32            # 1,024 threads a block
+DEFAULT_WARPS = 8
 
 
-def _check_merge_smem(S: int, K: int) -> None:
-    """The merge block's warp holds 4*S*K ints of one pair in shared
-    memory (merge_filter.cuh); a block has at least one warp."""
-    if 4 * S * K * 4 > MAX_SHARED:
+def frontend_warps(S: int, K: int, block: int | None = None) -> int:
+    """Warps (pairs) a block of the pair_frontend and merge_filter kernels.
+
+    Each warp holds 4*S*K ints of its pair in shared memory
+    (csrc/merge_filter.cuh).  None gives the default: 8, or as many as fit
+    48 KB (csrc/merge_filter.cuh::merge_filter_warps).  An explicit
+    ``block`` past 1,024 threads or 48 KB raises; nothing is clamped."""
+    fit = MAX_SHARED // (4 * S * K * 4)
+    if fit < 1:
         raise ValueError(f"S*K = {S * K} exceeds the kernel's shared memory")
+    if block is None:
+        return min(DEFAULT_WARPS, fit)
+    top = min(MAX_WARPS, fit)
+    if not 1 <= block <= top:
+        raise ValueError(f"pair_frontend takes 1..{top} warps a block at "
+                         f"S*K = {S * K}, got {block}")
+    return block
 
 
 @functools.lru_cache(maxsize=64)
@@ -96,9 +114,10 @@ def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
 
 
 def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
-                          seed_offs: tuple, delta: int,
-                          max_candidates: int) -> FrontendResult:
-    """Kernel: padded rows (T, K) + (2B, S) bucket ids -> FrontendResult."""
+                          seed_offs: tuple, delta: int, max_candidates: int,
+                          block: int | None = None) -> FrontendResult:
+    """Kernel: padded rows (T, K) + (2B, S) bucket ids -> FrontendResult,
+    ``block`` warps a block (`frontend_warps`)."""
     K = rows.shape[1]
     n2, S = buckets.shape
     B = n2 // 2
@@ -107,12 +126,12 @@ def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
     _cuda.check(buckets, "buckets", torch.int32, (2 * B, len(seed_offs)))
     if S > MAX_SEEDS:
         raise ValueError(f"pair_frontend supports S <= {MAX_SEEDS} seeds")
-    _check_merge_smem(S, K)
+    warps = frontend_warps(S, K, block)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, rows.device)
     PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,
                   _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
                   pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
-                  nh2.data_ptr(), _cuda.stream_of(rows))
+                  nh2.data_ptr(), warps, _cuda.stream_of(rows))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
                           n_hits2=nh2)
 
@@ -123,11 +142,14 @@ def frontend_merge_filter(
     seed_offs: tuple,        # the S seed offsets within the read
     delta: int,
     max_candidates: int,
+    block: int | None = None,
     backend: str = "auto",
 ) -> FrontendResult:
     """Conversion + sorted merge + Δ filter + compaction (steps 2.5-3) of
     locations already gathered by a (possibly sharded) SeedMap query."""
     backend = resolve_backend(backend, locs1.device, family="pair_frontend")
+    if block is not None:
+        frontend_warps(locs1.shape[1], locs1.shape[2], block)
     if backend == "torch":
         offs = torch.tensor(seed_offs, dtype=torch.int32, device=locs1.device)
         return merge_filter_ref(locs1, locs2, offs, delta, max_candidates)
@@ -137,12 +159,12 @@ def frontend_merge_filter(
     _cuda.check(locs2, "locs2", torch.int32, (B, S, K))
     if S > MAX_SEEDS:
         raise ValueError(f"merge_filter supports S <= {MAX_SEEDS} seeds")
-    _check_merge_smem(S, K)
+    warps = frontend_warps(S, K, block)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, locs1.device)
     MERGE_FILTER(locs1.data_ptr(), locs2.data_ptr(), B, S, K,
                  _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
                  pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
-                 nh2.data_ptr(), _cuda.stream_of(locs1))
+                 nh2.data_ptr(), warps, _cuda.stream_of(locs1))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
                           n_hits2=nh2)
 
@@ -156,10 +178,13 @@ def pair_frontend(
     hash_seed: int = 0,
     delta: int = 500,
     max_candidates: int = 8,
+    block: int | None = None,
     backend: str = "auto",
 ) -> FrontendResult:
     """Fused front end for a batch of read pairs (steps 1-3)."""
     backend = resolve_backend(backend, rows.device, family="pair_frontend")
+    if block is not None:
+        frontend_warps(seeds_per_read, rows.shape[1], block)
     if backend == "torch":
         return pair_frontend_ref(rows, reads1, reads2, seed_len,
                                  seeds_per_read, hash_seed, delta,
@@ -168,7 +193,8 @@ def pair_frontend(
     buckets = seed_buckets(reads1, reads2, seed_len, seeds_per_read,
                            hash_seed, T)
     offs = _seed_offsets(reads1.shape[1], seed_len, seeds_per_read)
-    return frontend_from_buckets(rows, buckets, offs, delta, max_candidates)
+    return frontend_from_buckets(rows, buckets, offs, delta, max_candidates,
+                                 block)
 
 
 def segment_pair_frontend(
@@ -181,6 +207,7 @@ def segment_pair_frontend(
     hash_seed: int = 0,
     delta: int = 500,
     max_candidates: int = 8,
+    block: int | None = None,
     backend: str = "auto",
 ) -> FrontendResult:
     """Long-read pseudo-pair front end (§4.7).
@@ -200,4 +227,4 @@ def segment_pair_frontend(
     r1 = segs[:, :-1].reshape(B * (S - 1), R).contiguous()
     r2 = segs[:, 1:].reshape(B * (S - 1), R).contiguous()
     return pair_frontend(rows, r1, r2, seed_len, seeds_per_read, hash_seed,
-                         delta, max_candidates, backend=backend)
+                         delta, max_candidates, block=block, backend=backend)

@@ -6,7 +6,9 @@ warp that writes ``NEG`` / 0 and exits, and no compaction, gather or
 scatter runs around the kernel.  The kernel computes each window's start
 itself (`kernels/_util.window_starts`'s clamp).  No host sync decides the
 launch.  On CPU tensors (or with ``backend="torch"``) it runs the plain
-version.
+version.  ``block`` is the kernel's warps (slots) a block
+(`residual_warps`): None for the default, a value the kernel cannot take
+raises on either backend; the result does not depend on it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,46 @@ from repro_torch.kernels.residual_dp.ref import (
 
 RESIDUAL_DP = _cuda.register(
     "residual_dp", "residual_dp_launch",
-    (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR,) * 3)
+    (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR, PTR, INT, PTR))
+
+MAX_SHARED = 48 * 1024
+#: the default warps a block, and the most the kernel's __launch_bounds__
+#: admit (wider bounds would change its register allocation)
+MAX_WARPS = 8
+
+
+def warp_stage_bytes(R: int, W: int, band: int | None, cpl: int) -> int:
+    """Bytes of a warp's staged window (csrc/gotoh.cuh::gotoh_warp_stage:
+    W bases between the pads the frame reads past them)."""
+    c = (W - R) // 2
+    if band is None or band >= W:
+        lo, hi = -1, 32 * cpl - 2
+    else:
+        lo = max(c + 1, 0) - band - 1
+        hi = (W + 1 if c + 1 < 0 else min(R + c, W + 1)) - band \
+            + 32 * cpl - 2
+    left = -lo if lo < 0 else 0
+    return (left + max(hi + 1, W) + 3) & ~3
+
+
+def residual_warps(R: int, W: int, band: int | None,
+                   block: int | None = None) -> tuple[int, int]:
+    """``(warps a block, cpl)`` of a residual_dp launch.
+
+    A warp stages its read and window in shared memory, and the kernel's
+    ``__launch_bounds__`` admit `MAX_WARPS` (csrc/residual_dp.cu).  None
+    gives the default, `MAX_WARPS`; an explicit ``block`` past it or past
+    48 KB raises, nothing is clamped."""
+    full = band is None or band >= W
+    cpl = lane_slots(W + 1 if full else 2 * band + 1)
+    if block is None:
+        return MAX_WARPS, cpl
+    per_warp = ((R + 3) & ~3) + warp_stage_bytes(R, W, band, cpl)
+    top = min(MAX_WARPS, MAX_SHARED // per_warp)
+    if not 1 <= block <= top:
+        raise ValueError(f"residual_dp takes 1..{top} warps a block at R "
+                         f"{R}, W {W}, band {band}, got {block}")
+    return block, cpl
 
 
 def residual_pair_dp(
@@ -46,6 +87,7 @@ def residual_pair_dp(
     packed_ref: bool = False,
     backend: str = "auto",
     kref: KernelRef | None = None,
+    block: int | None = None,
 ) -> ResidualDPResult:
     """Banded DP fallback for a compacted batch of residual pairs.
 
@@ -54,6 +96,9 @@ def residual_pair_dp(
     backend = resolve_backend(backend, ref.device, family="residual_dp")
     need1 = need1.bool()
     need2 = need2.bool()
+    R = reads1.shape[1]
+    if block is not None:
+        residual_warps(R, R + 2 * dp_pad, band, block)
     if backend == "torch":
         return residual_pair_dp_ref(ref, reads1, reads2, pos1, pos2, need1,
                                     need2, dp_pad, band, scoring, packed_ref)
@@ -70,7 +115,7 @@ def residual_pair_dp(
     _cuda.check(need1, "need1", torch.bool, (N,))
     _cuda.check(need2, "need2", torch.bool, (N,))
     full = band is None or band >= W
-    cpl = lane_slots(W + 1 if full else 2 * band + 1)
+    warps, cpl = residual_warps(R, W, band, block)
     if kref is None:
         kref = kernel_reference(ref, W, packed_ref)
     _cuda.check(kref.data, "kref.data", ref.dtype)
@@ -87,7 +132,7 @@ def residual_pair_dp(
         need1.data_ptr(), need2.data_ptr(), N, R, W, -1 if full else band,
         dp_pad, ref.shape[0], win_hi, kref.pad, cpl, scoring.match,
         scoring.mismatch, scoring.gap_open, scoring.gap_extend,
-        score.data_ptr(), end.data_ptr(), _cuda.stream_of(ref))
+        score.data_ptr(), end.data_ptr(), warps, _cuda.stream_of(ref))
     return ResidualDPResult(
         score1=score[:, 0], ref_end1=end[:, 0],
         score2=score[:, 1], ref_end2=end[:, 1],

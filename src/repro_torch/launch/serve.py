@@ -24,9 +24,13 @@ coalescing, admission control and the per-request latency ledger,
 reported next to throughput.
 
 ``--save-index PATH`` builds the session and writes its index store;
-``--index PATH`` serves from one without rebuilding.  Everything runs on
-the GPU unless ``--device cpu`` asks for the CPU (the plain PyTorch
-versions of the kernels).
+``--index PATH`` serves from one without rebuilding.  ``--chaos SPEC``
+wraps the stream loop's batch source with a deterministic fault schedule
+(`runtime.faultinject`) and serves it through the fault-tolerant fleet
+stream (`engine.multihost.map_stream`): the serve drains instead of
+crashing, and the output carries the health ledger (``--health-out PATH``
+writes it as JSON).  Everything runs on the GPU unless ``--device cpu``
+asks for the CPU (the plain PyTorch versions of the kernels).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --ref-len 500000 \\
@@ -34,6 +38,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --loop frontdoor
   PYTHONPATH=src python -m repro_torch.launch.serve --save-index /tmp/idx
   PYTHONPATH=src python -m repro_torch.launch.serve --index /tmp/idx
+  PYTHONPATH=src python -m repro_torch.launch.serve --chaos sigterm@0:2 \\
+      --health-out /tmp/health.json
 """
 from __future__ import annotations
 
@@ -65,15 +71,13 @@ from repro_torch.engine import (
     LongReadConfig,
     Mapper,
 )
+from repro_torch.engine import multihost
 from repro_torch.engine.index_store import store_size_bytes
+from repro_torch.runtime import ChaosSpec, PreemptionGuard, inject
+from repro_torch.runtime.watchdog import STRAGGLE_DEMO_WATCHDOG
 
 ACC_KEYS = ("mapped1", "mapped2", "correct1", "correct2",
             "pair_mapped", "pair_correct")
-
-CHAOS_REFUSAL = (
-    "--chaos drives the fault-tolerant fleet stream of engine/multihost.py "
-    "(keep-alive rounds, StreamResult.health), which repro_torch does not "
-    "have yet; serve without --chaos")
 
 
 def _make_accuracy_reduce(max_gap: int):
@@ -138,8 +142,11 @@ def serve(ref_len: int = 500_000, batch: int = 512, batches: int = 10,
           table_bits: int = 20, sub_rate: float = 1e-3,
           pipe_cfg: PipelineConfig = PipelineConfig(),
           seed: int = 0, verbose: bool = True, loop: str = "stream",
-          index_path: str | None = None, device: str = "cuda") -> dict:
-    """The pair-lane serve workload (``--loop stream`` or ``legacy``)."""
+          index_path: str | None = None, chaos: str | None = None,
+          device: str = "cuda") -> dict:
+    """The pair-lane serve workload (``--loop stream`` or ``legacy``;
+    ``chaos``, a `ChaosSpec` string, drives the stream loop through the
+    fault-tolerant fleet stream)."""
     rng = np.random.default_rng(seed)
     t0 = time.time()
     ref = random_reference(ref_len, rng)
@@ -162,11 +169,15 @@ def serve(ref_len: int = 500_000, batch: int = 512, batches: int = 10,
     sim_cfg = ReadSimConfig(read_len=pipe_cfg.read_len, sub_rate=sub_rate)
 
     if loop == "legacy":
+        if chaos:
+            raise ValueError("--chaos drives the fault-tolerant stream "
+                             "loop; the legacy loop has no drain path")
         out = _serve_legacy(ref, sm, stream, sim_cfg, batch, batches,
                             pipe_cfg, t_index)
     elif loop == "stream":
         out = _serve_stream(ref, sm, stream, sim_cfg, batch, batches,
-                            pipe_cfg, t_index, mapper=mapper, device=device)
+                            pipe_cfg, t_index, mapper=mapper, chaos=chaos,
+                            device=device)
     else:
         raise ValueError(f"unknown loop {loop!r}; expected stream|legacy")
     if verbose:
@@ -176,7 +187,7 @@ def serve(ref_len: int = 500_000, batch: int = 512, batches: int = 10,
 
 def _serve_stream(ref, sm, stream, sim_cfg, batch, batches, pipe_cfg,
                   t_index, mapper: Mapper | None = None,
-                  device: str = "cuda") -> dict:
+                  chaos: str | None = None, device: str = "cuda") -> dict:
     if mapper is None:
         mapper = Mapper.from_index(
             sm, ref, pipe_cfg, ExecutionConfig(device=device,
@@ -191,10 +202,37 @@ def _serve_stream(ref, sm, stream, sim_cfg, batch, batches, pipe_cfg,
     sim0 = read_pairs_for_step(ref, stream, 0, sim_cfg)
     warmup = (sim0.reads1, sim0.reads2,
               (sim0.true_start1, sim0.true_start2))
-    sr = mapper.map_stream(
-        gen(), warmup_batch=warmup,
-        reduce_fn=_make_accuracy_reduce(pipe_cfg.max_gap),
-        reduce_init=_zeros(ACC_KEYS, mapper.device))
+    reduce_kw = dict(reduce_fn=_make_accuracy_reduce(pipe_cfg.max_gap),
+                     reduce_init=_zeros(ACC_KEYS, mapper.device))
+    if chaos is not None:
+        # the batch source under the fault schedule, through the fleet
+        # stream: on one host no keep-alive rounds, but SIGTERM still
+        # drains between batches and the watchdog tracks stalls
+        spec = ChaosSpec.parse(chaos)
+        guard = PreemptionGuard()
+        try:
+            sr = multihost.map_stream(
+                mapper, inject(gen(), spec, host=multihost.process_index()),
+                guard=guard,
+                watchdog=STRAGGLE_DEMO_WATCHDOG
+                if any(f.kind == "straggle" for f in spec.faults) else None,
+                warmup_batch=warmup, **reduce_kw)
+        finally:
+            guard.uninstall()
+        a = {k: int(v) for k, v in sr.reduced.items()}
+        n = max(sr.n_pairs, 1)
+        return {
+            "pairs": sr.n_pairs,
+            "pairs_per_s": sr.pairs_per_s,
+            "index_build_s": t_index,
+            "loop": "stream",
+            "chaos": chaos,
+            "health": sr.health,
+            "mapped_frac": a["mapped1"] / n,
+            "correct_of_mapped": a["correct1"] / max(a["mapped1"], 1),
+            **sr.fractions,
+        }
+    sr = mapper.map_stream(gen(), warmup_batch=warmup, **reduce_kw)
     a = {k: int(v) for k, v in sr.reduced.items()}
     n = max(sr.n_pairs, 1)
     return {
@@ -561,13 +599,16 @@ def main(argv=None):
                          "--workload long; unreadable stores degrade to "
                          "a full build)")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
-                    help="refused: the fleet stream it drives is not "
-                         "ported")
+                    help="deterministic fault injection on the stream "
+                         "loop (runtime.faultinject grammar, e.g. "
+                         "'dry@0:3' or 'sigterm@0:2,straggle@0:1:0.05'): "
+                         "the serve drains instead of crashing and the "
+                         "output carries the health ledger")
+    ap.add_argument("--health-out", default=None, metavar="PATH",
+                    help="write the --chaos health ledger JSON here")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the session runs (default: the GPU)")
     args = ap.parse_args(argv)
-    if args.chaos is not None:
-        raise SystemExit(CHAOS_REFUSAL)
     # the shared flag must not clobber per-workload defaults: short pairs
     # default 1e-3, the long lane the PacBio-like 0.01
     sub_rate = args.sub_rate
@@ -582,6 +623,9 @@ def main(argv=None):
         compare_loops(out_path=args.out, reps=args.reps, **kwargs)
         return
     elif args.loop == "frontdoor":
+        if args.chaos:
+            raise SystemExit("--chaos composes with --loop stream; the "
+                             "front door has its own guard/watchdog path")
         out = serve_frontdoor(read_len=args.read_len,
                               long_frac=args.long_frac,
                               deadline_s=args.deadline_s,
@@ -589,10 +633,18 @@ def main(argv=None):
                               index_path=args.index,
                               **kwargs)
     elif args.workload == "long":
+        if args.chaos:
+            raise SystemExit("--chaos currently drives the pairs stream "
+                             "loop only")
         out = serve_long(read_len=args.read_len, index_path=args.index,
                          **kwargs)
     else:
-        out = serve(loop=args.loop, index_path=args.index, **kwargs)
+        out = serve(loop=args.loop, index_path=args.index, chaos=args.chaos,
+                    **kwargs)
+    if args.health_out and out.get("health") is not None:
+        os.makedirs(os.path.dirname(args.health_out) or ".", exist_ok=True)
+        with open(args.health_out, "w") as f:
+            json.dump(out["health"], f, indent=2, sort_keys=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -908,3 +908,96 @@ def test_lm_prefill_through_the_kernel_matches_plain(dev):
     rel = float((got - want).norm() / want.norm())
     assert rel <= 1e-2, rel
     assert cache.kv_k.shape == (2, 2, 1040, 4, 128) and cache.length == 1024
+
+
+# ------------------------------------------------------- launch geometry --
+# Every block the tuner may pick (its grid, plus 1 and each family's
+# largest at these shapes) gives the plain version's result: a kernel
+# whose output depended on how work splits across blocks would be a bug.
+def _blocks(grid, top):
+    return sorted({1, *grid, top})
+
+
+@pytest.mark.parametrize("block", _blocks((4, 8, 16, 32), 32))
+def test_pair_frontend_every_geometry_matches_plain(dev, block):
+    rng = np.random.default_rng(block)
+    T, B, S, K = 64, 301, 3, 32
+    rows = rng.integers(-40, 400, (T, K)).astype(np.int32)
+    rows[rng.random((T, K)) < 0.4] = INVALID_LOC
+    rows = torch.as_tensor(rows, device=dev)
+    buckets = torch.as_tensor(rng.integers(0, T, (2 * B, S)).astype(np.int32),
+                              device=dev)
+    offs = (0, 50, 100)
+    want = frontend_from_buckets_ref(rows, buckets[:B], buckets[B:],
+                                     torch.tensor(offs, device=dev), 60, 8)
+    _same(frontend_from_buckets(rows, buckets, offs, 60, 8, block=block),
+          want, f"block={block}")
+    locs = rows[buckets.long()]
+    _same(frontend_merge_filter(locs[:B], locs[B:], offs, 60, 8,
+                                block=block, backend="cuda"),
+          want, f"merge_filter block={block}")
+
+
+@pytest.mark.parametrize("block", _blocks((16, 32, 48, 96), 232))
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("prescreen", [0, 4])
+def test_candidate_align_every_geometry_matches_plain(dev, block, packed,
+                                                      prescreen):
+    ref, r1, r2, p1, p2 = _cand_kind_world(dev, "large", seed=block)
+    ref_in = pack_2bit(ref) if packed else ref
+    kw = dict(prescreen_top=prescreen, packed_ref=packed)
+    want = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="torch",
+                                **kw)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    base = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="cuda",
+                               block=block, count=count, **kw)
+    candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="cuda",
+                         count=base, **kw)
+    _same(got, want, f"block={block} packed={packed} P={prescreen}")
+    assert int(count) == int(base)
+
+
+@pytest.mark.parametrize("block", _blocks((2, 4, 8), 8))
+@pytest.mark.parametrize("band", [24, None])
+@pytest.mark.parametrize("packed", [False, True])
+def test_residual_dp_every_geometry_matches_plain(dev, block, band, packed):
+    rng = np.random.default_rng(block)
+    L, R, n, dp_pad = 5000, 150, 301, 16
+    ref = rng.integers(0, 4, L, np.uint8)
+    pos1 = rng.integers(-40, L + 10, n).astype(np.int32)
+    pos2 = rng.integers(0, L - R, n).astype(np.int32)
+    reads = rng.integers(0, 4, (2, n, R), np.uint8)
+    need = rng.random((2, n)) < 0.5
+    t = (lambda x: torch.as_tensor(x, device=dev))
+    ref_in = pack_2bit(t(ref)) if packed else t(ref)
+    args = (ref_in, t(reads[0]), t(reads[1]), t(pos1), t(pos2), t(need[0]),
+            t(need[1]), dp_pad)
+    want = residual_pair_dp(*args, band=band, packed_ref=packed,
+                            backend="torch")
+    _same(residual_pair_dp(*args, band=band, packed_ref=packed,
+                           backend="cuda", block=block), want,
+          f"block={block} band={band} packed={packed}")
+
+
+@pytest.mark.parametrize("M,block", [
+    *((256, b) for b in _blocks((4, 8, 16, 32), 32)),
+    *((1000, b) for b in (1, 4, 8, 12)),       # 12 warps fill 48 KB
+])
+def test_location_vote_every_geometry_matches_plain(dev, M, block):
+    rng = np.random.default_rng(block + M)
+    diag = rng.integers(-400, 4000, (301, M)).astype(np.int32)
+    diag[rng.random((301, M)) < 0.5] = INVALID_LOC
+    d = torch.as_tensor(diag, device=dev)
+    _same(location_vote(d, 64, block=block, backend="cuda"),
+          location_vote(d, 64, backend="torch"), f"block={block} M={M}")
+
+
+def test_geometry_past_the_limits_raises_before_launch(dev):
+    d = torch.zeros((4, 12_288), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="1..1 warps"):
+        location_vote(d, 64, block=2, backend="cuda")
+    ref, r1, r2, p1, p2 = _cand_world(dev)
+    with pytest.raises(ValueError, match="pairs a block"):
+        candidate_pair_align(ref, r1, r2, p1, p2, 8, block=233,
+                             backend="cuda")

@@ -1,8 +1,9 @@
 """repro_torch's serve CLI against repro's on the CPU (``--device cpu``):
 every key of `serve` (stream and legacy loops), `serve_long`,
 `serve_frontdoor` and `save_index` -> ``--index`` that is not a timing
-equals repro's output for the same arguments; ``--chaos`` is refused;
-the shared ``--sub-rate`` flag keeps its per-workload defaults."""
+equals repro's output for the same arguments; the shared ``--sub-rate``
+flag keeps its per-workload defaults.  ``--chaos`` and ``--health-out``
+are held against repro's in `tests/test_torch_multihost.py`."""
 import os
 
 import pytest
@@ -73,11 +74,6 @@ def test_save_index_then_index_matches_repro(tmp_path):
     _same(tserve.serve_frontdoor(device="cpu", index_path=str(tmp_path / "t"),
                                  **fd),
           jserve.serve_frontdoor(index_path=str(tmp_path / "j"), **fd))
-
-
-def test_chaos_is_refused():
-    with pytest.raises(SystemExit, match="engine/multihost.py"):
-        tserve.main(["--chaos", "dry@0:1", "--device", "cpu"])
 
 
 def test_cli_sub_rate_defaults_and_device(monkeypatch):
