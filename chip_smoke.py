@@ -71,7 +71,8 @@ Phases (any failure exits non-zero; nothing is caught):
      12,288 slots and light_align's synthetic rows run after the last
      timed reading); flash_attention at the prefill's shapes (BH 256,
      S 2,048, D 128, bf16, causal, K/V head h // 8; extra checks: float32,
-     S 2,000 padded, causal=False, D 80 and 64); exact equality (flash:
+     S 2,000 padded, causal=False, D 80, 64 and 112 in bf16, D 112 in
+     float32); exact equality (flash:
      3e-2 in bf16, 1e-4 in float32), timed with CUDA events (`ms`) and
      torch.profiler (`device_ms`, inputs warm in L2, the mean over the
      launches its trace holds), and
@@ -110,6 +111,21 @@ Phases (any failure exits non-zero; nothing is caught):
      to the stream's), and ``serve --chaos sigterm@0:2 --health-out`` as
      a subprocess; launches counted over the phase ("tune + fleet");
      then phase 3's timed cases' device times read again;
+  2i. the rest of the LM substrate at full width, after the mapping
+     sessions are freed: llama4-scout (4 of 48 layers), kimi-k2 (1 of 61;
+     384 experts, top-8, 112-wide heads), mamba2, zamba2, qwen2-vl (1,024
+     patch embeddings + 1,024 text tokens) and musicgen (4 codebooks), each
+     with parameters from a seeded generator on the card, bf16
+     activations and the flash kernel on: `prefill_step` of 8 prompts of
+     2,048 positions and 16 greedy `decode_step`s, with exactly one flash
+     launch per attention layer of the prefill and no other kernel;
+     prefill and decode rates and peak memory; the last-position logits
+     against a plain-backend prefill (phase 2e's gate) and the decode
+     logits against a teacher-forced forward (relative L2 <= 5e-2; moe at
+     the no-drop capacity factor on shorter prompts, over the positions
+     routed alike in every layer, at most 10 % rerouted; ssm and hybrid
+     again with float32 activations, forced with SSD chunks of 16);
+     finite logits of the right shape;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -165,6 +181,45 @@ LM_FLOOR_MARGIN = 1.5
 # ~7 bf16 roundings a layer (2^-9 each) can land an ulp apart over 32
 # layers: sqrt(32 * 7) * 2^-9 ~ 3e-2 of random walk, with margin.
 LM_DECODE_TOL = 5e-2
+
+# Phase 2i: the rest of the LM substrate at full width (B 8, 2,048-position
+# prompts, 16 greedy decode steps, bf16 activations, the flash kernel on).
+# Each entry: the config, the layers kept (None: all; a cut only where one
+# card forces it: llama4-scout's 48 float32 layers are 8.30 GB each,
+# kimi-k2's 61 bf16 layers 34.3 GB each) and the flash launches one
+# prefill makes (one per attention layer; decode attends without it).
+LM_FAMILIES = (
+    ("llama4-scout-17b-a16e", 4, 4),
+    ("kimi-k2-1t-a32b", 1, 1),
+    ("mamba2-2.7b", None, 0),
+    ("zamba2-2.7b", None, 9),      # the shared block after every 6 layers
+    ("qwen2-vl-7b", None, 28),
+    ("musicgen-medium", None, 48),
+)
+LM_FAMILY_DECODE = 16
+# The moe decode-vs-teacher-forcing check runs apart, at the no-drop
+# capacity factor n_experts / top_k (C >= the tokens of a routing group),
+# on prompts short enough for that capacity's (G, E * C + 1, d) buffer:
+# at the default 1.25 a group of the 16,512-token forward drops tokens
+# that a one-token decode (C 8) keeps, so the two differ by design.
+MOE_NO_DROP_PROMPT = {"llama4-scout-17b-a16e": 512, "kimi-k2-1t-a32b": 128}
+# Top-k routing is discontinuous: decode (M = 8 rows) and the forced
+# forward (M = 4,224) sum in other orders in bf16, and a near-tie pick
+# flips (repro's own tests run moe in float32 for that reason).  The gate
+# compares the positions routed alike in every layer, and at most this
+# share of positions may route apart (a fault of the routing or the cache
+# moves most of them).
+MOE_REROUTED_SHARE = 0.1
+# ssm / hybrid: the teacher-forced forward over 2,064 positions runs SSD in
+# chunks of 16 (ssd_chunked needs S a multiple of the chunk; 2,064 is not
+# one of 64); the chunking changes the order of sums, not the function.
+# Their decode-vs-forcing gate runs the prompt and the 16 steps again
+# with float32 activations: 54-64 SSM layers with random weights carry
+# bf16 rounding to 18-23 % of the logits between decode and forcing
+# (mamba2, zamba2 on an H100; bf16 and float32 forcing of the same tokens
+# differ by 34-43 %), so bf16 can tell no fault from rounding there; the
+# bf16 distances are printed beside it.
+SSM_FORCED_CHUNK = 16
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
 # non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
@@ -329,6 +384,233 @@ def profile_step(step, n_items: int, unit: str, key: str, tag: str,
     for t in top:
         print(f"{tag}   {t['device_ms']:9.3f} ms  x{t['calls']:<3d} "
               f"{t['name']}")
+
+
+def lm_family_run(name: str, n_layers: int | None, want_flash: int,
+                  seed: int) -> tuple[dict, dict]:
+    """Phase 2i for one config: returns its record and the launches of its
+    prefill + decode steps.  Raises on any failed gate."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import moe
+    from repro_torch.models.model import (
+        decode_step, model_init_params, prefill_step)
+    from repro_torch.models.transformer import _logits, forward
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(name), use_flash_kernel=True)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, steps = LM_BATCH, LM_FAMILY_DECODE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = t0 = time.time()
+    params = model_init_params(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    rec = {"layers": cfg.n_layers, "of_layers": full_layers,
+           "init_s": time.time() - t0,
+           "params": sum(t.numel() for t in _tensors(params)),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in _tensors(params))}
+
+    def batch_of(n_pos: int) -> dict:
+        """Seeded prompts of ``n_pos`` positions: vlm's first
+        cfg.vision_tokens are patch embeddings (normal x 0.02, bf16)."""
+        if cfg.family == "audio":
+            shape = (B, n_pos, cfg.n_codebooks)
+        else:
+            shape = (B, n_pos - (cfg.vision_tokens
+                                 if cfg.family == "vlm" else 0))
+        out = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                       generator=g, device=dev)}
+        if cfg.family == "vlm":
+            out["vision_embeds"] = (torch.randn(
+                (B, cfg.vision_tokens, cfg.d_model), generator=g,
+                device=dev) * 0.02).to(torch.bfloat16)
+        return out
+
+    def next_tokens(lg):
+        """Greedy: (B, 1) or, for audio's (B, K, V) logits, (B, 1, K)."""
+        return lg.argmax(-1)[:, None]
+
+    def run(c, prompt, max_len, n_steps):
+        """prefill + greedy decode steps: (prefill logits, decode logits
+        (B, n_steps, ...), fed tokens, prefill ms, decode ms per step)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, prompt, c, max_len)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        tok, fed, dec, ms = next_tokens(logits), [], [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            lg, cache = decode_step(params, cache, tok, c)
+            fed.append(tok)
+            tok = next_tokens(lg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            dec.append(lg)
+        if cache.length != max_len:
+            raise RuntimeError(f"{name}: cache length {cache.length} after "
+                               f"decoding, want {max_len}")
+        del cache
+        return logits, torch.stack(dec, 1), fed, pre_ms, ms
+
+    def forced(c, prompt, fed, n_prompt):
+        """Teacher-forced logits of the fed positions."""
+        seq = dict(prompt, tokens=torch.cat([prompt["tokens"]] + fed, 1))
+        hidden, _ = forward(params, c, seq, return_hidden=True)
+        return _logits(params, c, hidden[:, n_prompt:])
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # 1. the main path: prefill + decode, launches counted over exactly it
+    prompt = batch_of(LM_PROMPT)
+    max_len = LM_PROMPT + steps
+    _cuda.reset_launches()
+    logits, decoded, fed, first_ms, step_ms = run(cfg, prompt, max_len,
+                                                  steps)
+    launches = _cuda.launch_counts()
+    if launches["flash_attention"] != want_flash or any(
+            v for k, v in launches.items() if k not in LM_KERNELS):
+        raise RuntimeError(f"{name}: launches are off (want {want_flash} "
+                           f"flash launches and nothing else): {launches}")
+    shape = (B, cfg.n_codebooks, cfg.vocab_size) if cfg.family == "audio" \
+        else (B, cfg.vocab_size)
+    if logits.shape != shape or decoded.shape != (B, steps) + shape[1:] \
+            or not (logits.isfinite().all() and decoded.isfinite().all()):
+        raise RuntimeError(f"{name}: logits are not finite or of the wrong "
+                           f"shape: {tuple(logits.shape)}, "
+                           f"{tuple(decoded.shape)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, spare = prefill_step(params, prompt, cfg, max_len)
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    del spare
+    rec.update(
+        first_prefill_ms=first_ms,
+        prefill_tokens_per_s=B * LM_PROMPT / rec["prefill_ms"] * 1e3,
+        repeat_prefill_max_abs=float((again - logits).abs().max()),
+        first_decode_ms=step_ms[0],
+        decode_ms_per_step=sum(step_ms[1:]) / (steps - 1))
+    rec["decode_tokens_per_s"] = B / rec["decode_ms_per_step"] * 1e3
+    rec["launches"] = launches
+    del again
+
+    # 2. kernel against plain prefill (phase 2e's gate)
+    plain, spare = prefill_step(params, prompt, cfg, max_len,
+                                backend="torch")
+    del spare
+    blockwise, spare = prefill_step(
+        params, prompt, dataclasses.replace(cfg, use_flash_kernel=False),
+        max_len)
+    del spare
+    rec["kernel_vs_plain_rel_l2"] = rel(logits, plain)
+    rec["blockwise_vs_plain_rel_l2"] = rel(blockwise, plain)
+    rec["kernel_vs_plain_limit"] = max(
+        LM_PLAIN_TOL, LM_FLOOR_MARGIN * rec["blockwise_vs_plain_rel_l2"])
+    del plain, blockwise
+
+    # 3. decode against teacher forcing (moe: apart, at no-drop capacity)
+    same = torch.ones((B, steps), dtype=torch.bool, device=dev)
+    if cfg.family == "moe":
+        nd = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        n_tf = MOE_NO_DROP_PROMPT[name]
+        tf_prompt = batch_of(n_tf)
+        picks, route = [], moe.route     # each layer's expert ids, in order
+        moe.route = lambda lg, k: (lambda r: picks.append(r[1]) or r)(
+            route(lg, k))
+        try:
+            _, tf_decoded, tf_fed, _, _ = run(nd, tf_prompt, n_tf + steps,
+                                              steps)
+            want = forced(nd, tf_prompt, tf_fed, n_tf)
+        finally:
+            moe.route = route
+        # picks: the prefill's L calls, L per decode step, the forward's L
+        L, k = cfg.n_layers, cfg.moe_top_k
+        for layer in range(L):
+            step_ids = torch.stack([picks[L + t * L + layer].reshape(B, k)
+                                    for t in range(steps)], 1)
+            forced_ids = picks[L + steps * L + layer].reshape(
+                B, n_tf + steps, k)[:, n_tf:]
+            same &= (step_ids.sort(-1).values
+                     == forced_ids.sort(-1).values).all(-1)
+        rec["forced_prompt"] = n_tf
+        rec["forced_capacity_factor"] = nd.capacity_factor
+    elif cfg.family in ("ssm", "hybrid"):
+        # bf16, printed: the SSM stack with random weights carries an ulp
+        # far (the distance of bf16 to float32 forcing below says how far)
+        chunked = dataclasses.replace(cfg, ssm_chunk=SSM_FORCED_CHUNK)
+        rec["decode_vs_forced_bf16_rel_l2"] = rel(
+            decoded, forced(chunked, prompt, fed, LM_PROMPT))
+        # the gate: the same steps with float32 activations
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        _, tf_decoded, tf_fed, _, _ = run(f32, prompt, max_len, steps)
+        want = forced(dataclasses.replace(f32, ssm_chunk=SSM_FORCED_CHUNK),
+                      prompt, tf_fed, LM_PROMPT)
+        rec["forced_bf16_vs_float32_rel_l2"] = rel(
+            forced(chunked, prompt, tf_fed, LM_PROMPT), want)
+        rec["forced_dtype"] = "float32"
+    else:
+        tf_decoded = decoded
+        want = forced(cfg, prompt, fed, LM_PROMPT)
+    rec["decode_vs_forced_all_rel_l2"] = rel(tf_decoded, want)
+    rec["decode_vs_forced_rel_l2"] = rel(tf_decoded[same], want[same])
+    rec["decode_positions_rerouted"] = int((~same).sum())
+    agree = tf_decoded.argmax(-1) == want.argmax(-1)
+    rec["decode_greedy_agree"] = int(agree.sum())
+    rec["decode_greedy_picks"] = agree.numel()
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.time() - t_all
+    del params, logits, decoded, tf_decoded, want
+    torch.cuda.empty_cache()
+
+    print(f"[2i] {name}: {rec['layers']} of {full_layers} layers, "
+          f"{rec['params']} {cfg.param_dtype} parameters "
+          f"({rec['param_bytes'] / 1e9:.2f} GB, drawn in "
+          f"{rec['init_s']:.1f} s); prefill {B} x {LM_PROMPT}: "
+          f"{rec['prefill_ms']:.1f} ms ({rec['prefill_tokens_per_s']:.0f} "
+          f"tokens/s; first {first_ms:.1f} ms); decode "
+          f"{rec['decode_ms_per_step']:.2f} ms a step "
+          f"({rec['decode_tokens_per_s']:.0f} tokens/s); peak "
+          f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB; flash launches "
+          f"{launches['flash_attention']}")
+    print(f"[2i] {name}: kernel vs plain prefill relative L2 "
+          f"{rec['kernel_vs_plain_rel_l2']:.3e} (two plain "
+          f"{rec['blockwise_vs_plain_rel_l2']:.3e}, limit "
+          f"{rec['kernel_vs_plain_limit']:.3e}); decode vs teacher forcing "
+          f"{rec['decode_vs_forced_rel_l2']:.3e} (limit {LM_DECODE_TOL}"
+          + (f"; {rec['forced_prompt']}-token prompts, capacity factor "
+             f"{rec['forced_capacity_factor']:g}; over the "
+             f"{B * steps - rec['decode_positions_rerouted']} of "
+             f"{B * steps} positions routed alike in every layer, all "
+             f"{rec['decode_vs_forced_all_rel_l2']:.3e}"
+             if cfg.family == "moe" else "")
+          + (f"; float32 activations; in bf16 "
+             f"{rec['decode_vs_forced_bf16_rel_l2']:.3e}, bf16 against "
+             f"float32 forcing {rec['forced_bf16_vs_float32_rel_l2']:.3e}"
+             if "forced_dtype" in rec else "")
+          + f"), argmax agrees on {rec['decode_greedy_agree']} "
+          f"of {rec['decode_greedy_picks']}; {rec['seconds']:.1f} s")
+    if rec["kernel_vs_plain_rel_l2"] > rec["kernel_vs_plain_limit"]:
+        raise RuntimeError(f"{name}: kernel prefill differs from the plain "
+                           f"one: relative L2 "
+                           f"{rec['kernel_vs_plain_rel_l2']}")
+    if rec["decode_positions_rerouted"] > MOE_REROUTED_SHARE * B * steps:
+        raise RuntimeError(f"{name}: decode and teacher forcing route "
+                           f"{rec['decode_positions_rerouted']} of "
+                           f"{B * steps} positions to other experts")
+    if rec["decode_vs_forced_rel_l2"] > LM_DECODE_TOL:
+        raise RuntimeError(f"{name}: decode differs from teacher forcing: "
+                           f"relative L2 {rec['decode_vs_forced_rel_l2']}")
+    return rec, launches
 
 
 def main() -> int:
@@ -1428,7 +1710,8 @@ def main() -> int:
     # query heads over 8 x 4 K/V heads, S 2,048, D 128, bf16, causal): 4 BH
     # D S(S+1)/2 flops of the two products over the causal triangle, and q,
     # o and the GQA k, v once each; SDPA timed beside it.  Then float32,
-    # S 2,000 (padded), causal=False, D 80 and 64.
+    # S 2,000 (padded), causal=False, D 80 and 64, and D 112 (kimi-k2's
+    # head, zero-padded to 128) in bf16 and float32.
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     n_q, n_kv = LM_BATCH * 32, LM_BATCH * 4
 
@@ -1444,7 +1727,9 @@ def main() -> int:
             ("float32 S 2000 padded", 2000, 128, torch.float32, True, False),
             ("bf16 causal=False", 2048, 128, torch.bfloat16, False, False),
             ("bf16 D 80", 2048, 80, torch.bfloat16, True, False),
-            ("bf16 D 64", 2048, 64, torch.bfloat16, True, False)):
+            ("bf16 D 64", 2048, 64, torch.bfloat16, True, False),
+            ("bf16 D 112", 2048, 112, torch.bfloat16, True, False),
+            ("float32 D 112", 2048, 112, torch.float32, True, False)):
         fq, fk, fv = qkv(s, d, dtype)
         size = 2 if dtype == torch.bfloat16 else 4
         sdpa = None
@@ -2097,11 +2382,37 @@ def main() -> int:
                       f"{fmt_ms(ms)}" for n, ms in after.items()))
     del timed_runs
 
+    # ---- 2i. the rest of the LM substrate at full width --------------------
+    # The mapping sessions' device memory goes first (the 2^26-bucket
+    # index alone is 8.6 GB); the LM configs need up to ~65 GB.
+    import gc
+    del mapper, smapper, csr, rows, words, kref, bases, bases_kref
+    del mf_locs, mf_buckets, synth
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on; the LM gates assume off")
+    held = torch.cuda.memory_allocated()
+    print(f"[2i] {held / 2**30:.2f} GiB still held from the mapping phases")
+    t_fam = time.time()
+    fam_launches = {k: 0 for k in REPLACES}
+    record["lm_families"] = {"held_before_bytes": held}
+    for i, (name, n_layers, want_flash) in enumerate(LM_FAMILIES):
+        rec, fl = lm_family_run(name, n_layers, want_flash, SEED + 80 + i)
+        record["lm_families"][name] = rec
+        for k, v in fl.items():
+            fam_launches[k] += v
+    record["lm_families"]["seconds"] = time.time() - t_fam
+    print(f"[2i] launches over the six prefills and decodes: "
+          f"{fam_launches}; {record['lm_families']['seconds']:.1f} s")
+
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
         entry["launches_tune_fleet"] = rest_launches[name]
-        entry["launches"] += sv[name] + rest_launches[name]
+        entry["launches_lm_families"] = fam_launches[name]
+        entry["launches"] += sv[name] + rest_launches[name] \
+            + fam_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

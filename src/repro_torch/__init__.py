@@ -1,6 +1,6 @@
 """GenPairX paired-end read mapping in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a), and the serving path of the dense LM
-that repro carries beside it.
+kernels for NVIDIA Hopper (sm_90a), and the serving path of the LM
+substrate that repro carries beside it.
 
 The package mirrors `repro`'s layout (`core/`, `kernels/<family>/`,
 `engine/`, `configs/`, `models/`) so each module has an obvious counterpart, but it imports
@@ -23,8 +23,9 @@ map_single_end` is the paper's full-DP single-end comparison point.
 knobs, and a session reads its cache once at build
 (``ExecutionConfig(tune=...)``).
 
-The package also serves a dense LM of repro's substrate (yi-6b and its
-family) through the hand-written flash attention kernel::
+The package also serves every family of repro's LM substrate (dense,
+moe, ssm, hybrid, vlm, audio) with prefill attention through the
+hand-written flash attention kernel::
 
     from repro_torch.models.model import prefill_step, decode_step
     logits, cache = prefill_step(params, {"tokens": tokens}, cfg, max_len)

@@ -1,1 +1,1 @@
-"""Model configurations of the LM serving path (the dense family)."""
+"""Model configurations of the LM serving path (all ten of repro's)."""

@@ -2,8 +2,10 @@
 substrate, with the same fields as the JAX package's, so that
 ``ModelConfig(**dataclasses.asdict(jax_cfg))`` converts one to one.
 
-Only the dense family is served by this package so far
-(`repro_torch.models.transformer.forward` raises for the others).
+Families: dense | moe | ssm | hybrid | vlm | audio.  The vlm and audio
+entries are transformer backbones; their modality frontends are stubs
+whose precomputed patch embeddings or codebook tokens arrive in the
+batch.
 """
 from __future__ import annotations
 
@@ -65,6 +67,23 @@ class ModelConfig:
         return self.d_model // max(self.n_heads, 1)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """long_500k eligibility: SSM and hybrid archs."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -73,11 +92,34 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
     def n_params(self) -> int:
-        """Approximate parameter count of a dense model (reporting only)."""
+        """Approximate parameter count (reporting/roofline only)."""
         d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
         hd = self.hd
+        emb = V * d * (self.n_codebooks or 1)
+        if self.family == "ssm":
+            per = (2 * self.d_inner + 2 * self.ssm_state + self.ssm_heads) * d \
+                + self.d_inner * d + self.d_inner * (self.ssm_conv + 2)
+            return L * per + emb
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
-        return L * (attn + 3 * d * f) + V * d * (self.n_codebooks or 1)
+        if self.family == "moe":
+            ff = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            ff = 3 * d * f
+        if self.family == "hybrid":
+            ssm_per = (2 * self.d_inner + 2 * self.ssm_state
+                       + self.ssm_heads) * d + self.d_inner * d
+            return L * ssm_per + (attn + 3 * d * f) + emb
+        return L * (attn + ff) + emb
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        hd = self.hd
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        ff = self.moe_top_k * 3 * d * f + d * self.n_experts
+        return L * (attn + ff) + self.vocab_size * d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -138,5 +138,10 @@ def lm_params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
         *parents, last = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        node[last] = torch.as_tensor(arr.copy(), device=device)
+        if arr.dtype.name == "bfloat16":   # ml_dtypes: no numpy dtype in torch
+            t = torch.from_numpy(arr.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.as_tensor(arr.copy())
+        node[last] = t.to(device)
     return out

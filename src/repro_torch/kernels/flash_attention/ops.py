@@ -6,9 +6,11 @@ On CUDA tensors `flash_attention` launches the hand-written kernel
 repro's wrapper, it zero-pads S up to a multiple of `BLOCK` under causal
 masking (padded keys lie above every real row's diagonal, padded rows are
 cut off) and raises for an unaligned S without it, on both backends.
-The bf16 kernel takes head widths 64 and 128: a head of 80 is zero-padded
-to 128 under the original scale, which adds exact zeros to every score
-and gives zero output columns, cut off.
+The kernel has head widths 64 and 128 in bf16, and 64, 80 and 128 in
+float32: any head up to 128 wide is zero-padded to the next of them
+(`kernel_head_dim`; in bf16 80 and 112 go to 128, in float32 112 does)
+under the original scale, which adds exact zeros to every score and gives
+zero output columns, cut off.  A head wider than 128 raises.
 """
 from __future__ import annotations
 
@@ -24,8 +26,22 @@ FLASH_ATTENTION = _cuda.register(
     (PTR, PTR, PTR, PTR, INT, INT, INT, INT, F32, INT, INT, PTR))
 
 BLOCK = 128                       # repro's default block_q = block_k
-HEAD_DIMS = (64, 80, 128)         # the kernel's head widths (bf16: 80 padded)
+# the kernel's head widths in each dtype
+HEAD_DIMS = {torch.float32: (64, 80, 128), torch.bfloat16: (64, 128)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The kernel width a head of ``D`` is zero-padded to in ``dtype``:
+    the smallest of `HEAD_DIMS` that holds it."""
+    if dtype not in DTYPES:
+        raise TypeError(f"the flash_attention kernel takes "
+                        f"{tuple(DTYPES)}, got {dtype}")
+    for width in HEAD_DIMS[dtype]:
+        if D <= width:
+            return width
+    raise ValueError(f"the flash_attention kernel takes head widths up to "
+                     f"{HEAD_DIMS[dtype][-1]}, got {D}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,17 +69,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = D ** -0.5
     if backend == "torch":
         return attention_ref(q, k, v, causal, sm_scale)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head widths "
-                         f"{HEAD_DIMS}, got {D}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"the flash_attention kernel takes "
-                        f"{tuple(DTYPES)}, got {q.dtype}")
+    d_pad = kernel_head_dim(D, q.dtype) - D
     for name, t in (("q", q), ("k", k), ("v", v)):
         _cuda.check(t, name, q.dtype)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    d_pad = 128 - D if q.dtype == torch.bfloat16 and D == 80 else 0
     if pad or d_pad:
         q, k, v = (torch.nn.functional.pad(t, (0, d_pad, 0, pad))
                    for t in (q, k, v))

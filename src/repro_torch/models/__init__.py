@@ -1,2 +1,3 @@
-"""The LM substrate's serving path (dense family): parameter templates,
-layers, the transformer forward and the prefill / decode steps."""
+"""The LM substrate's serving path (every family): parameter templates,
+layers, the MoE and Mamba2 blocks, the transformer forward and the
+prefill / decode steps."""

@@ -1,8 +1,9 @@
-"""Shared transformer layers of the dense family: RMSNorm, RoPE, GQA
-attention and the SwiGLU MLP.
+"""Shared transformer layers: RMSNorm, RoPE / M-RoPE, GQA attention and
+the SwiGLU MLP.
 
-Prefill attention takes one of three routes, as in the JAX package: the
-plain O(S^2) `dense_attention` for short prompts, the blockwise online
+Prefill attention takes one of four routes, as in the JAX package: the
+lower-triangle block loop (`triangle_attention`, ``attn_impl="triangle"``),
+the plain O(S^2) `dense_attention` for short prompts, the blockwise online
 softmax (`blockwise_attention`, no S x S scores) and, with
 ``cfg.use_flash_kernel``, the hand-written flash kernel
 (`repro_torch.kernels.flash_attention`).  Decode attends one query against
@@ -12,7 +13,6 @@ activations (B, S, H, D), weights (d_in, d_out).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -29,6 +29,13 @@ def rmsnorm(x, scale, eps: float):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
 
 
+def silu(x):
+    """x * sigmoid(x) in the JAX package's form, x * (1 / (1 + exp(-x))),
+    one rounding per op in x's dtype: ``F.silu`` rounds a bf16 result
+    once, which differs from it in the last bit of ~40 % of values."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 # ------------------------------------------------------------------- rope --
 def rope_freqs(head_dim: int, theta: float, device=None):
     half = head_dim // 2
@@ -36,12 +43,10 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                          device=device) / half))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, D); positions: (B, S) int.  Rotates the concatenated
-    halves [x1 cos - x2 sin, x2 cos + x1 sin] in float32."""
+def _rotate(x, ang):
+    """x: (B, S, H, D) rotated by angles ``ang`` (B, S, D/2): the
+    concatenated halves [x1 cos - x2 sin, x2 cos + x1 sin] in float32."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs              # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
@@ -49,7 +54,47 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL M-RoPE frequency split (t, h, w) in half-dim units.
+
+    head_dim=128 -> (16, 24, 24), matching the published config.
+    """
+    half = head_dim // 2
+    s_hw = 3 * half // 8
+    return (half - 2 * s_hw, s_hw, s_hw)
+
+
+def apply_mrope(x, positions_thw, theta: float):
+    """M-RoPE: three position streams rotate disjoint frequency sections.
+
+    x: (B, S, H, D); positions_thw: (B, S, 3) int (t, h, w ids; equal for
+    text tokens, spatial for vision-patch tokens).
+    """
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec = mrope_sections(x.shape[-1])
+    idx = torch.arange(x.shape[-1] // 2, device=x.device)
+    which = torch.where(idx < sec[0], 0, torch.where(idx < sec[0] + sec[1],
+                                                     1, 2))
+    return _rotate(x, positions_thw[..., which].float() * freqs)
+
+
 # -------------------------------------------------- blockwise attention ----
+def _softmax_step(m, l, acc, s, vblk):
+    """One kv block of the online softmax: the running max, sum and
+    output after scores ``s`` (B, KV, G, bq, bk) against ``vblk``."""
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    alpha = torch.exp(m - m_new)
+    return (m_new, l * alpha + p.sum(-1, keepdim=True),
+            acc * alpha + torch.einsum("bkgqc,bckd->bkgqd", p, vblk))
+
+
 def blockwise_attention(q, k, v, block_q: int, block_k: int,
                         causal: bool = True):
     """Flash-style attention without S x S scores (plain torch).
@@ -82,13 +127,7 @@ def blockwise_attention(q, k, v, block_q: int, block_k: int,
             if causal:
                 mask = (qi * bq + pos_q)[:, None] >= (ki * bk + pos_k)[None]
                 s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bkgqc,bckd->bkgqd", p,
-                                             vb[:, ki])
-            m = m_new
+            m, l, acc = _softmax_step(m, l, acc, s, vb[:, ki])
         outs.append(acc / torch.where(l == 0, 1.0, l))
     return torch.stack(outs)
 
@@ -98,6 +137,42 @@ def _assemble_blockwise(outs, B, S, H, D, KV, G, nq, bq):
     x = outs.movedim(0, 1)                  # (B, nq, KV, G, bq, D)
     x = x.permute(0, 1, 4, 2, 3, 5)         # (B, nq, bq, KV, G, D)
     return x.reshape(B, S, H, D)
+
+
+def triangle_attention(q, k, v, block_q: int, block_k: int):
+    """Causal blockwise attention over the lower triangle of blocks only:
+    kv blocks past a query block's diagonal are skipped, not masked.
+    q: (B, S, H, D); k, v: (B, S, KV, D).  Returns (B, S, H, D) float32.
+    """
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    bq = min(block_q, S)
+    bk = min(block_k, S)
+    if S % bq or S % bk:
+        raise ValueError(f"triangle_attention needs S a multiple of the "
+                         f"blocks ({bq}, {bk}), got {S}")
+    nq = S // bq
+    scale = D ** -0.5
+    out_blocks = []
+    for qi in range(nq):
+        qblk = q[:, qi * bq: (qi + 1) * bq].reshape(B, bq, KV, G, D).float()
+        m = torch.full((B, KV, G, bq, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, bq, 1), device=q.device)
+        acc = torch.zeros((B, KV, G, bq, D), device=q.device)
+        hi = ((qi + 1) * bq + bk - 1) // bk   # kv blocks meeting the triangle
+        for ki in range(hi):
+            kblk = k[:, ki * bk: (ki + 1) * bk].float()
+            vblk = v[:, ki * bk: (ki + 1) * bk].float()
+            s = torch.einsum("bqkgd,bckd->bkgqc", qblk, kblk) * scale
+            if ki * bk + bk > qi * bq:        # diagonal block: mask inside
+                qp = qi * bq + torch.arange(bq, device=q.device)
+                kp = ki * bk + torch.arange(bk, device=q.device)
+                s = torch.where(qp[:, None] >= kp[None], s, NEG_INF)
+            m, l, acc = _softmax_step(m, l, acc, s, vblk)
+        o = acc / torch.where(l == 0, 1.0, l)          # (B, KV, G, bq, D)
+        out_blocks.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, H, D))
+    return torch.cat(out_blocks, dim=1)
 
 
 def dense_attention(q, k, v, causal: bool = True):
@@ -161,11 +236,14 @@ def attention_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
 
 
 def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
-                      cache_len: int | None = None, backend: str = "auto"):
+                      cache_len: int | None = None, positions_thw=None,
+                      backend: str = "auto"):
     """GQA attention.  cache=None: full causal (prefill), returns
     (out, (k, v)); cache=(k_cache, v_cache): decode, writes the new rows
     into the caches in place and returns (out, (k_cache, v_cache)).
-    ``backend`` picks the flash kernel's backend (`flash_attention`).
+    With ``cfg.m_rope`` and ``positions_thw`` (B, S, 3) the rotation is
+    M-RoPE's.  ``backend`` picks the flash kernel's backend
+    (`flash_attention`).
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -177,9 +255,15 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
+    if cfg.m_rope and positions_thw is not None:
+        q = apply_mrope(q, positions_thw, cfg.rope_theta)
+        k = apply_mrope(k, positions_thw, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         k_cache, v_cache = cache
@@ -190,10 +274,9 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
         new_cache = (k_cache, v_cache)
     else:
         if cfg.attn_impl == "triangle":
-            raise NotImplementedError(
-                "attn_impl='triangle' (the dry-run's unrolled attention) is "
-                "not ported")
-        if S <= cfg.attn_block_q or S <= 128:
+            out = triangle_attention(q, k, v, cfg.attn_block_q,
+                                     cfg.attn_block_k)
+        elif S <= cfg.attn_block_q or S <= 128:
             out = dense_attention(q, k, v)
         elif cfg.use_flash_kernel:
             # (B, S, heads, D) -> (B * heads, S, D); the kernel reads K/V
@@ -230,4 +313,4 @@ def mlp_forward(p, x):
     dt = x.dtype
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    return (F.silu(g) * u) @ p["w_down"].to(dt)
+    return (silu(g) * u) @ p["w_down"].to(dt)

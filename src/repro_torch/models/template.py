@@ -54,9 +54,18 @@ def init_params(template, generator: torch.Generator, param_dtype: str,
             fan_in *= lf.shape[d]
         scale = lf.scale if lf.scale is not None else \
             1.0 / math.sqrt(max(fan_in, 1))
-        arr = torch.randn(lf.shape, generator=generator, dtype=torch.float32,
-                          device=device).mul_(scale)
-        return arr if dt == torch.float32 else arr.to(dt)
+        if dt == torch.float32:
+            return torch.randn(lf.shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(scale)
+        # drawn in float32 one trailing matrix at a time: a float32 copy
+        # of a whole bf16 expert stack would not fit beside it on the card
+        arr = torch.empty(lf.shape, dtype=dt, device=device)
+        for mat in arr.view((-1,) + tuple(lf.shape[-2:])
+                            if len(lf.shape) > 2 else (1,) + arr.shape):
+            mat.copy_(torch.randn(mat.shape, generator=generator,
+                                  dtype=torch.float32,
+                                  device=device).mul_(scale))
+        return arr
     return {k: init_params(template[k], generator, param_dtype, device)
             for k in sorted(template)}
 

@@ -1,20 +1,30 @@
-"""The dense transformer (yi-6b, qwen1.5-110b, stablelm-3b, minitron-8b):
-template, KV cache and forward.
+"""Model assembly for every architecture family: template, decode cache
+and forward.
+
+  dense  — GQA transformer (yi-6b, qwen1.5-110b, stablelm-3b, minitron-8b)
+  moe    — GQA + grouped-dispatch MoE FFN (kimi-k2, llama4-scout)
+  ssm    — attention-free Mamba2/SSD stack (mamba2-2.7b)
+  hybrid — Mamba2 stack with one *shared* attention block applied after
+           every `attn_every` layers (zamba2-2.7b)
+  vlm    — dense backbone + precomputed patch-embedding prefix + M-RoPE
+           (qwen2-vl-7b; the frontend is a stub)
+  audio  — dense backbone over K EnCodec codebook streams: summed codebook
+           embeddings, K output heads (musicgen-medium)
 
 Cache protocol, as in the JAX package:
   forward(cache=None)                      no KV kept
-  forward(cache=None, return_cache=True)   prefill: per-layer KV of length
-                                           S is collected
+  forward(cache=None, return_cache=True)   prefill: per-layer KV (length
+                                           S) / final SSM states collected
   forward(cache=DecodeCache, S == 1)       decode: one token
 
-Layers run as a Python loop over the layer-stacked ``(L, ...)``
-parameters (the JAX package's lax.scan); remat and unroll change no value
-and have no counterpart here, nor do the sharding constraints, which are
-the identity without a mesh.  The other families (moe, ssm, hybrid, vlm,
-audio) are not ported yet: `forward` raises for them.
+Layers run as a Python loop over the layer-stacked ``(L, ...)`` (hybrid:
+``(G, per, ...)``) parameters, the JAX package's lax.scan; remat and
+unroll change no value and have no counterpart here, nor do the sharding
+constraints, which are the identity without a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -22,41 +32,67 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.seed_gather.ref import normalise_ids
 from repro_torch.models import layers as L
+from repro_torch.models.mamba2 import (
+    MambaState, init_mamba_state, mamba_forward, mamba_template,
+)
+from repro_torch.models.moe import moe_forward, moe_template
 from repro_torch.models.template import Leaf
 
-PORTED_FAMILIES = ("dense",)
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported to "
-            f"repro_torch yet; ported: {PORTED_FAMILIES}")
+DEFAULT_MOE_GROUPS = 32
 
 
 # =========================================================== templates =====
 def _block_template(cfg: ModelConfig, stacked: tuple) -> dict:
     sta = tuple("layers" for _ in stacked)
     d = cfg.d_model
-    return {
+    t = {
         "ln1": Leaf(stacked + (d,), sta + ("norep",), init="ones"),
         "attn": L.attention_template(cfg, stacked),
         "ln2": Leaf(stacked + (d,), sta + ("norep",), init="ones"),
-        "mlp": L.mlp_template(cfg, stacked),
     }
+    if cfg.family == "moe":
+        t["moe"] = moe_template(cfg, stacked)
+    else:
+        t["mlp"] = L.mlp_template(cfg, stacked)
+    return t
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """Hybrid: (groups, SSM layers a group); the shared block runs once
+    after each group."""
+    return cfg.n_layers // cfg.attn_every, cfg.attn_every
 
 
 def model_template(cfg: ModelConfig) -> dict:
-    _check_family(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    t: dict[str, Any] = {
-        "final_norm": Leaf((d,), ("norep",), init="ones"),
-        "embed": Leaf((V, d), ("vocab", "embed"), scale=0.02,
-                      fan_in_dims=()),
-        "layers": _block_template(cfg, (cfg.n_layers,)),
-    }
-    if not cfg.tie_embeddings:
-        t["out_head"] = Leaf((d, V), ("embed", "vocab"))
+    t: dict[str, Any] = {"final_norm": Leaf((d,), ("norep",), init="ones")}
+    if cfg.family == "audio":
+        K = cfg.n_codebooks
+        t["embed"] = Leaf((K, V, d), ("codebooks", "vocab", "embed"),
+                          scale=0.02, fan_in_dims=())
+        t["out_head"] = Leaf((K, d, V), ("codebooks", "embed", "vocab"))
+    else:
+        t["embed"] = Leaf((V, d), ("vocab", "embed"), scale=0.02,
+                          fan_in_dims=())
+        if not cfg.tie_embeddings:
+            t["out_head"] = Leaf((d, V), ("embed", "vocab"))
+    if cfg.family == "ssm":
+        Ln = cfg.n_layers
+        t["layers"] = {
+            "ln": Leaf((Ln, d), ("layers", "norep"), init="ones"),
+            "mamba": mamba_template(cfg, (Ln,)),
+        }
+    elif cfg.family == "hybrid":
+        G, per = _groups(cfg)
+        t["layers"] = {
+            "ln": Leaf((G, per, d), ("groups", "layers", "norep"),
+                       init="ones"),
+            "mamba": mamba_template(cfg, (G, per)),
+        }
+        t["shared"] = _block_template(
+            dataclasses.replace(cfg, family="dense"), ())
+    else:  # dense / moe / vlm / audio
+        t["layers"] = _block_template(cfg, (cfg.n_layers,))
     return t
 
 
@@ -69,8 +105,12 @@ def layer_params(lp, i: int):
 
 # ============================================================= caches ======
 class DecodeCache(NamedTuple):
-    """Layer-stacked KV caches (L, B, Smax, KV, hd); ``ssm`` is () for the
-    dense family; ``length`` (a Python int) is the current fill."""
+    """KV caches + SSM states, layer-stacked; unused leaves are ().
+
+    kv_k, kv_v: (L, B, Smax, KV, hd); hybrid (G, B, Smax, KV, hd).
+    ssm: a `MambaState` of (L, ...) (hybrid (G, per, ...)) leaves.
+    length (a Python int): the current fill.
+    """
 
     kv_k: Any
     kv_v: Any
@@ -80,21 +120,65 @@ class DecodeCache(NamedTuple):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> DecodeCache:
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """A zero cache.  Every layer's buffers are allocated (a decode writes
+    them in place), where the JAX package broadcasts one zero state; the
+    SSM states are float32 whatever ``dtype`` (the KV's) is."""
+    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "ssm":
+        st = init_mamba_state(cfg, batch, lead=(cfg.n_layers,),
+                              device=device)
+        return DecodeCache((), (), st, 0)
+    if cfg.family == "hybrid":
+        G, per = _groups(cfg)
+        st = init_mamba_state(cfg, batch, lead=(G, per), device=device)
+        return DecodeCache(
+            torch.zeros((G,) + kv_shape, dtype=dtype, device=device),
+            torch.zeros((G,) + kv_shape, dtype=dtype, device=device), st, 0)
+    shape = (cfg.n_layers,) + kv_shape
     return DecodeCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device), (), 0)
 
 
 # ============================================================ blocks =======
-def _dense_block(p, x, cfg, positions, kv_cache, cache_len, backend):
-    """One attn + FFN block.  kv_cache: None (full-seq) or (k, v) buffers."""
+def _dense_block(p, x, cfg, positions, kv_cache, cache_len, positions_thw,
+                 n_groups, backend):
+    """One attn + FFN block.  kv_cache: None (full-seq) or (k, v) buffers.
+    Returns (x, new_kv, aux): aux is the MoE losses, or None."""
     h = L.rmsnorm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
     attn_out, new_kv = L.attention_forward(
-        p["attn"], h, cfg, positions, kv_cache, cache_len, backend)
+        p["attn"], h, cfg, positions, kv_cache, cache_len, positions_thw,
+        backend)
     x = x + attn_out
     h = L.rmsnorm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.mlp_forward(p["mlp"], h), new_kv
+    aux = None
+    if "moe" in p:
+        ff, aux = moe_forward(p["moe"], h, cfg, n_groups)
+    else:
+        ff = L.mlp_forward(p["mlp"], h)
+    return x + ff, new_kv, aux
+
+
+def _ssm_block(p, x, cfg, state):
+    h = L.rmsnorm(x, p["ln"].to(x.dtype), cfg.norm_eps)
+    out, new_state = mamba_forward(p["mamba"], h, cfg, state)
+    return x + out, new_state
+
+
+def _state_at(st: MambaState, idx) -> MambaState:
+    """Layer ``idx``'s views of the stacked states."""
+    return MambaState(st.conv[idx], st.ssm[idx])
+
+
+def _write_state(st: MambaState, idx, new: MambaState) -> None:
+    """A decode step's new state, into the cache's buffers in place."""
+    st.conv[idx].copy_(new.conv)
+    st.ssm[idx].copy_(new.ssm)
+
+
+def _stack_states(states: list, lead: tuple) -> MambaState:
+    """Per-layer states, in layer order, stacked to ``lead`` dims."""
+    return MambaState(*(torch.stack(f).reshape(lead + f[0].shape)
+                        for f in zip(*states)))
 
 
 # ========================================================== embedding ======
@@ -110,17 +194,40 @@ def take_fill(table, ids):
 
 
 def _embed(params, cfg: ModelConfig, batch: dict):
+    """(x, positions, positions_thw or None, loss_mask)."""
+    dt = cfg.act_dtype
     tokens = batch["tokens"]
-    x = take_fill(params["embed"], tokens).to(cfg.act_dtype)
+    dev = tokens.device
+    if cfg.family == "audio":
+        emb = params["embed"]                 # (K, V, d)
+        # summed in the parameter dtype, cast once
+        x = sum(take_fill(emb[k], tokens[..., k])
+                for k in range(cfg.n_codebooks)).to(dt)
+        B, S = tokens.shape[:2]
+        positions = torch.arange(S, device=dev).expand(B, S)
+        return x, positions, None, torch.ones((B, S), dtype=torch.bool,
+                                              device=dev)
+    x = take_fill(params["embed"], tokens).to(dt)
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return x, positions, torch.ones((B, S), dtype=torch.bool,
-                                    device=tokens.device)
+    loss_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(dt)    # (B, Sv, d) before the text
+        x = torch.cat([ve, x], dim=1)
+        Sv = ve.shape[1]
+        S = S + Sv
+        loss_mask = torch.cat([torch.zeros((B, Sv), dtype=torch.bool,
+                                           device=dev), loss_mask], dim=1)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    positions_thw = batch.get("positions_thw") if cfg.m_rope else None
+    return x, positions, positions_thw, loss_mask
 
 
 def _logits(params, cfg: ModelConfig, x):
-    """Float32 logits against the float32 (tied) embedding or head."""
+    """Float32 logits against the float32 (tied) embedding or head(s);
+    audio: (B, S, K, V) from its K heads."""
     xf = x.float()
+    if cfg.family == "audio":
+        return torch.einsum("bsd,kdv->bskv", xf, params["out_head"].float())
     if cfg.tie_embeddings:
         return xf @ params["embed"].float().T
     return xf @ params["out_head"].float()
@@ -129,46 +236,99 @@ def _logits(params, cfg: ModelConfig, x):
 # ============================================================ forward ======
 def forward(params, cfg: ModelConfig, batch: dict,
             cache: DecodeCache | None = None, return_cache: bool = False,
-            return_hidden: bool = False, backend: str = "auto"):
+            return_hidden: bool = False, backend: str = "auto",
+            moe_groups: int = DEFAULT_MOE_GROUPS):
     """Returns (logits, aux) or (logits, aux, cache_out).
 
     cache=None: full-sequence forward; with return_cache=True the
-    per-layer KV (length S) is collected (prefill).  cache=DecodeCache:
-    single-token decode (S must be 1); the cache's buffers are updated in
-    place (the returned cache shares them) rather than copied.
-    return_hidden=True returns the final-normed hidden states in place of
-    the logits.  ``backend`` is the flash kernel's (`flash_attention`).
+    per-layer KV (length S) and final SSM states are collected (prefill).
+    cache=DecodeCache: single-token decode (S must be 1); the cache's
+    buffers are updated in place (the returned cache shares them) rather
+    than copied.  return_hidden=True returns the final-normed hidden
+    states in place of the logits.  ``aux`` holds the MoE losses summed
+    over layers (zeros in decode, whose layer scan drops them, and for
+    the other families) and the ``loss_mask``.  ``backend`` is the flash
+    kernel's (`flash_attention`); ``moe_groups`` the routing groups asked
+    for.
     """
-    _check_family(cfg)
     decode = cache is not None
     collect = return_cache and not decode
-    x, positions, loss_mask = _embed(params, cfg, batch)
+    x, positions, positions_thw, loss_mask = _embed(params, cfg, batch)
     B, S, _ = x.shape
     if decode:
         if S != 1:
             raise ValueError(f"the decode path takes one token per row, got "
                              f"{S}; use prefill for S > 1")
         positions = positions + cache.length
+    if cfg.m_rope and positions_thw is None:
+        # text-default M-RoPE: t = h = w = (cache-offset) position
+        positions_thw = positions[..., None].expand(B, S, 3)
     cache_len = cache.length if decode else None
+    zero = torch.zeros((), device=x.device)
+    aux = {"balance_loss": zero, "z_loss": zero}
     lp = params["layers"]
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        kv = (cache.kv_k[i], cache.kv_v[i]) if decode else None
-        x, nkv = _dense_block(layer_params(lp, i), x, cfg, positions, kv,
-                              cache_len, backend)
-        if collect:
-            ks.append(nkv[0])
-            vs.append(nkv[1])
     cache_out = None
-    if decode:
-        cache_out = cache._replace(length=cache.length + S)
-    elif collect:
-        cache_out = DecodeCache(torch.stack(ks), torch.stack(vs), (), S)
+
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.n_layers):
+            st = _state_at(cache.ssm, i) if decode else None
+            x, nst = _ssm_block(layer_params(lp, i), x, cfg, st)
+            if decode:
+                _write_state(cache.ssm, i, nst)
+            elif collect:
+                states.append(nst)
+        if decode:
+            cache_out = cache._replace(length=cache.length + S)
+        elif collect:
+            cache_out = DecodeCache(
+                (), (), _stack_states(states, (cfg.n_layers,)), S)
+
+    elif cfg.family == "hybrid":
+        G, per = _groups(cfg)
+        dense_cfg = dataclasses.replace(cfg, family="dense")
+        states, ks, vs = [], [], []
+        for g in range(G):
+            pg = layer_params(lp, g)
+            for j in range(per):
+                st = _state_at(cache.ssm, (g, j)) if decode else None
+                x, nst = _ssm_block(layer_params(pg, j), x, cfg, st)
+                if decode:
+                    _write_state(cache.ssm, (g, j), nst)
+                elif collect:
+                    states.append(nst)
+            kv = (cache.kv_k[g], cache.kv_v[g]) if decode else None
+            x, nkv, _ = _dense_block(params["shared"], x, dense_cfg,
+                                     positions, kv, cache_len, positions_thw,
+                                     moe_groups, backend)
+            if collect:
+                ks.append(nkv[0])
+                vs.append(nkv[1])
+        if decode:
+            cache_out = cache._replace(length=cache.length + S)
+        elif collect:
+            cache_out = DecodeCache(torch.stack(ks), torch.stack(vs),
+                                    _stack_states(states, (G, per)), S)
+
+    else:  # dense / moe / vlm / audio
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            kv = (cache.kv_k[i], cache.kv_v[i]) if decode else None
+            x, nkv, layer_aux = _dense_block(
+                layer_params(lp, i), x, cfg, positions, kv, cache_len,
+                positions_thw, moe_groups, backend)
+            if layer_aux is not None and not decode:
+                aux = {k: aux[k] + layer_aux[k] for k in aux}
+            if collect:
+                ks.append(nkv[0])
+                vs.append(nkv[1])
+        if decode:
+            cache_out = cache._replace(length=cache.length + S)
+        elif collect:
+            cache_out = DecodeCache(torch.stack(ks), torch.stack(vs), (), S)
 
     x = L.rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    aux = {"balance_loss": torch.zeros((), device=x.device),
-           "z_loss": torch.zeros((), device=x.device),
-           "loss_mask": loss_mask}
+    aux["loss_mask"] = loss_mask
     out = x if return_hidden else _logits(params, cfg, x)
     if decode or collect:
         return out, aux, cache_out

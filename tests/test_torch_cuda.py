@@ -864,6 +864,10 @@ def test_building_blocks_refuse_cpu_tensors():
     (torch.bfloat16, 64, 8, 512, 128, False),    # G 8 at D 128
     (torch.bfloat16, 32, 1, 512, 80, False),     # D 80 padded to 128
     (torch.bfloat16, 32, 4, 640, 80, True),
+    (torch.bfloat16, 64, 8, 512, 112, True),     # kimi-k2's, padded to 128
+    (torch.float32, 64, 8, 512, 112, True),
+    (torch.bfloat16, 16, 1, 256, 112, False),
+    (torch.bfloat16, 8, 4, 256, 16, True),       # a smoke width, to 64
 ])
 def test_flash_attention_matches_plain(dev, dtype, bh, g, s, d, causal):
     gen = torch.Generator(device=dev).manual_seed(bh * s + d)
@@ -879,8 +883,8 @@ def test_flash_attention_matches_plain(dev, dtype, bh, g, s, d, causal):
 
 
 def test_flash_attention_refuses_what_the_kernel_cannot_take(dev):
-    q = torch.zeros((2, 128, 16), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head widths"):
+    q = torch.zeros((2, 128, 160), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head widths up to 128"):
         flash_attention(q, q, q, backend="cuda")
     q = torch.zeros((2, 128, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):

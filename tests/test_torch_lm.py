@@ -1,4 +1,5 @@
-"""repro_torch's LM serving path (dense family) against repro on the CPU.
+"""repro_torch's LM serving path (dense family, the registry and
+templates of every family) against repro on the CPU.
 
 Every input is made from a seed with numpy; repro's parameters are carried
 across with `lm_params_from_jax`, so both packages compute one function.
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_NAMES as jax_arch_names
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
@@ -38,6 +40,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as TL
 from repro_torch.models import model as tmodel
+from repro_torch.models.mamba2 import init_mamba_state
 from repro_torch.models import transformer as ttrans
 from repro_torch.models.template import count_params, init_params
 
@@ -253,35 +256,54 @@ def test_lm_params_from_jax_carries_every_leaf():
         lm_params_from_jax(bad, tc)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_template_and_init_follow_repro(name):
     jc, tc = _configs(name, "float32")
     assert count_params(ttrans.model_template(tc)) == \
         jax_count_params(jax_model_template(jc))
     p = init_params(ttrans.model_template(tc), torch.Generator().manual_seed(0),
                     tc.param_dtype, device="cpu")
-    assert p["final_norm"].eq(1).all() and p["layers"]["ln1"].eq(1).all()
+    assert p["final_norm"].eq(1).all()
+    norm = p["layers"]["ln"] if "ln" in p["layers"] else p["layers"]["ln1"]
+    assert norm.eq(1).all()
     if tc.qkv_bias:
         assert p["layers"]["attn"]["bq"].eq(0).all()
-    assert abs(float(p["embed"].std()) - 0.02) < 2e-3
-    w = p["layers"]["mlp"]["w_down"]        # fan-in d_ff = 128
-    assert abs(float(w.std()) - 128 ** -0.5) < 0.01
-    assert w.dtype == torch.float32
+    assert abs(float(p["embed"].float().std()) - 0.02) < 2e-3
+    # a weight of fan-in 128 in each family: d_ff, the expert d_ff, d_inner
+    if tc.family == "moe":
+        w = p["layers"]["moe"]["w_down"]
+    elif tc.family == "ssm":
+        w = p["layers"]["mamba"]["w_out"]
+    else:
+        w = (p["shared"] if tc.family == "hybrid" else p["layers"])["mlp"][
+            "w_down"]
+    assert abs(float(w.float().std()) - 128 ** -0.5) < 0.01
+    assert w.dtype == tc.p_dtype
 
 
 def test_registry_lists_only_ported_families():
-    assert set(ARCH_NAMES) == set(DENSE)
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("mamba2-2.7b")
-    cfg = dataclasses.replace(get_config("yi-6b"), family="moe")
-    with pytest.raises(NotImplementedError, match="'moe' family"):
-        ttrans.forward({}, cfg, {"tokens": torch.zeros((1, 1))})
+    """Every family of repro's registry is ported: the same names, and
+    no family's forward raises."""
+    assert ARCH_NAMES == jax_arch_names
+    assert {get_config(n).family for n in ARCH_NAMES} == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"}
+    for name in ARCH_NAMES:
+        jc, tc = _configs(name, "float32")
+        p = init_params(ttrans.model_template(tc),
+                        torch.Generator().manual_seed(0), tc.param_dtype,
+                        device="cpu")
+        shape = (1, 16, tc.n_codebooks) if tc.family == "audio" else (1, 16)
+        logits, _ = ttrans.forward(p, tc, {"tokens": torch.zeros(
+            shape, dtype=torch.long)})
+        assert logits.isfinite().all()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-model")
 
 
 def test_entry_points_default_to_cuda():
     """A CPU run is reached only by asking for it."""
     for fn in (tmodel.model_init_params, tmodel.make_smoke_batch,
-               ttrans.init_cache, init_params):
+               ttrans.init_cache, init_params, init_mamba_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
