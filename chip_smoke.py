@@ -126,6 +126,22 @@ Phases (any failure exits non-zero; nothing is caught):
      routed alike in every layer, at most 10 % rerouted; ssm and hybrid
      again with float32 activations, forced with SSD chunks of 16);
      finite logits of the right shape;
+  2j. LM training after 2i's models are freed: stablelm-3b at its full
+     width and depth (32 layers, d 2,560, ~2.67 B float32 parameters,
+     bf16 activations, remat, blockwise attention, AdamW with float32
+     moments) at 4,096 tokens a sequence and a global batch of 8 (cut
+     from 256) in micro-batches of two, through the trainer's own
+     `make_train_step`: one warm-up and 4 timed steps (ms a step,
+     tokens/s, 6 N tokens / time / 989 TFLOP/s, peak memory, each step's
+     loss and grad norm, all finite) and a device profile of a one-
+     sequence micro-batch; one step of the 2-layer full-width
+     model in float32 on the card and on the CPU from the same parameters
+     and batch (loss, grad norm, each leaf's update within stated
+     tolerances); `train()` at 2 layers end to end, uninterrupted, stopped
+     with `stop_after` and resumed from its checkpoint (equal losses
+     within rel 1e-6) and preempted by SIGTERM (~3.5 GB checkpoints in a
+     directory under chiprun_out/ that the phase deletes); the flash
+     wrapper raising under autograd; no kernel launched;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -135,6 +151,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -220,6 +237,47 @@ MOE_REROUTED_SHARE = 0.1
 # differ by 34-43 %), so bf16 can tell no fault from rounding there; the
 # bf16 distances are printed beside it.
 SSM_FORCED_CHUNK = 16
+
+# Phase 2j: LM training of stablelm-3b at its published width and depth
+# (32 layers, d 2,560, vocab 50,304; float32 parameters, bf16 activations,
+# remat, blockwise attention, AdamW with float32 moments: the JAX package's
+# training setting) at its TRAIN_4K sequence length.  The global batch is
+# cut from 256 to 8 sequences to fit one card, in micro-batches of two
+# sequences: the ~43 GB of parameters, gradients and moments, the
+# per-layer gradients a backward holds before it stacks them (~11 GB) and
+# one layer's recomputed float32 attention (~4.3 GB a sequence) stay under
+# the card's 80 GB beside what the earlier phases still hold (8.65 GiB).
+# The step is host-bound on the blockwise attention's ~184,000 launches a
+# sequence (59-61 % of a one-sequence micro-batch idle in this phase's
+# device profile on an H100 80GB HBM3 at 700 W, PERF.md section 5), so
+# two sequences a micro-batch halve the launches of a step.
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_SEQ = 4_096
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 4
+TRAIN_TIMED = 4                 # timed steps after one warm-up step
+# The trainer's end-to-end gates run at 2 of the 32 layers and full width
+# (checkpoints of ~3.5 GB: parameters and both moments), 4 micro-batches
+# of 2 sequences: an uninterrupted run of 4 steps (checkpoints at 2 and
+# 4), a run stopped after 2 and resumed from its checkpoint, and a run
+# preempted by SIGTERM during step 1.  The resumed run's losses must equal
+# the uninterrupted run's within repro's rel 1e-6.
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_STEPS = 4
+TRAIN_CUT_ACCUM = 4
+TRAIN_RESTART_RTOL = 1e-6
+# Card against CPU: one step of the 2-layer full-width model in float32
+# activations (remat off: it changes no value) on 1 x 1,024 tokens (the
+# blockwise route, 2 x 2 blocks), lr at its peak (warmup 0).  Float32
+# sums in other orders (cuBLAS against the CPU's BLAS) keep the loss
+# within ~1e-6 and the gradient norm within ~1e-5; AdamW's first update
+# is ~lr * g / (|g| + eps), so only entries whose gradient is within a few
+# eps (1e-8) of 0 can move, by up to lr: the update of each leaf must
+# agree within 1e-3 of its L2 norm.
+TRAIN_CPU_SEQ = 1_024
+TRAIN_CPU_LOSS_RTOL = 1e-5
+TRAIN_CPU_GNORM_RTOL = 1e-4
+TRAIN_CPU_UPDATE_RTOL = 1e-3
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
 # non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
@@ -611,6 +669,325 @@ def lm_family_run(name: str, n_layers: int | None, want_flash: int,
         raise RuntimeError(f"{name}: decode differs from teacher forcing: "
                            f"relative L2 {rec['decode_vs_forced_rel_l2']}")
     return rec, launches
+
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def profile_train_micro(params, cfg, batch: dict, out_dir: Path) -> dict:
+    """Where one micro-batch's forward + backward (one sequence of the last
+    step's batch, as the train step's ``micro_grads`` runs it) spends its
+    time: torch.profiler's device time by kernel against the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import tree_leaves
+
+    mb = {k: v[:1] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    # device activity only: the host side of ~184,000 launches would make
+    # the trace, and its summary, minutes long
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(params, mb, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    top = [{"name": e.key[:80], "calls": e.count,
+            "device_ms": e.self_device_time_total / 1e3} for e in events[:12]]
+    (out_dir / "profile_train_micro.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
+    print(f"[2j] profiled micro-batch (1 x {batch['tokens'].shape[1]} "
+          f"tokens, forward + backward): {wall_ms:.1f} ms wall, "
+          f"{busy_ms:.1f} ms device-busy (idle {1 - busy_ms / wall_ms:.3f}),"
+          f" {launches} device launches")
+    for t in top:
+        print(f"[2j]   {t['device_ms']:10.3f} ms  x{t['calls']:<6d} "
+              f"{t['name']}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_launches": launches, "top": top}
+
+
+def train_full_width(seed: int, out_dir: Path) -> dict:
+    """Phase 2j, part 1: `make_train_step` of stablelm-3b at full width and
+    depth; one warm-up step and TRAIN_TIMED timed ones, then a profile of
+    one micro-batch."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import TrainRunConfig, make_train_step
+    from repro_torch.models.model import model_init_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig, init_state
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    if not (cfg.remat and cfg.attn_impl == "blockwise"
+            and not cfg.use_flash_kernel and cfg.dtype == "bfloat16"
+            and cfg.param_dtype == "float32"):
+        raise RuntimeError(f"{TRAIN_ARCH} is not in the training setting: "
+                           f"{cfg}")
+    run = TrainRunConfig(arch=TRAIN_ARCH, smoke=False, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+                         seed=seed, device="cuda")
+    opt_cfg = adamw.OptConfig(lr=run.peak_lr)
+    ccfg = CompressConfig()
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = model_init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    for p in _tensors(params):
+        p.requires_grad_(True)
+    opt_state = adamw.init(params, opt_cfg)
+    comp = init_state(params, ccfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _tensors(params))
+    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "init_s": time.time() - t0,
+           "state_bytes": torch.cuda.memory_allocated(),
+           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "grad_accum": TRAIN_ACCUM, "steps": []}
+    step_fn = make_train_step(cfg, opt_cfg, run, ccfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for step in range(1 + TRAIN_TIMED):
+        batch = batch_for_step(data, cfg, step, dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt_state, comp, m = step_fn(params, opt_state, comp, batch,
+                                             step)
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        rec["steps"].append({"step": step, "ms": ms, "loss": loss,
+                             "gnorm": gnorm, "lr": float(m["lr"])})
+        print(f"[2j] {TRAIN_ARCH} step {step}"
+              f"{' (warm-up)' if step == 0 else ''}: {ms:.1f} ms, loss "
+              f"{loss:.6f}, grad norm {gnorm:.6f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"step {step}: loss {loss}, grad norm {gnorm}")
+    timed = [s["ms"] for s in rec["steps"][1:]]
+    rec["profile_micro"] = profile_train_micro(params, cfg, batch, out_dir)
+    rec["ms_per_step"] = sum(timed) / len(timed)
+    rec["tokens_per_s"] = tokens / (rec["ms_per_step"] / 1e3)
+    rec["mfu_6n"] = 6 * n_params * tokens / (rec["ms_per_step"] / 1e3) \
+        / BF16_FLOPS_PER_S
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[2j] {TRAIN_ARCH} full width and depth ({n_params:,} parameters, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_ACCUM} "
+          f"micro-batches): {rec['ms_per_step']:.1f} ms a step (steps "
+          f"{', '.join(f'{t:.1f}' for t in timed)}), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, 6*N*tokens / time / "
+          f"989 TFLOP/s = {rec['mfu_6n']:.4f}, peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB, init {rec['init_s']:.1f} s")
+    return rec
+
+
+def train_card_vs_cpu(seed: int) -> dict:
+    """Phase 2j, part 2: one step of the 2-layer full-width model in float32
+    activations on the card and on the CPU from the same parameters and
+    batch."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import TrainRunConfig, make_train_step
+    from repro_torch.models.model import model_init_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig, init_state
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32",
+                              remat=False)
+    run = TrainRunConfig(arch=TRAIN_ARCH, smoke=False, seq_len=TRAIN_CPU_SEQ,
+                         global_batch=1, warmup_steps=0, seed=seed,
+                         device="cuda")
+    opt_cfg = adamw.OptConfig(lr=run.peak_lr)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_SEQ,
+                      global_batch=1, seed=seed)
+    cpu_params = model_init_params(
+        cfg, torch.Generator().manual_seed(seed), device="cpu")
+    start = tree_map(lambda t: t.clone(), cpu_params)
+    out = {}
+    for where in ("cuda", "cpu"):
+        params = (cpu_params if where == "cpu"
+                  else tree_map(lambda t: t.to(where), cpu_params))
+        for p in _tensors(params):
+            p.requires_grad_(True)
+        opt_state = adamw.init(params, opt_cfg)
+        comp = init_state(params, CompressConfig())
+        step_fn = make_train_step(cfg, opt_cfg, run, CompressConfig())
+        t0 = time.time()
+        params, _, _, m = step_fn(params, opt_state, comp,
+                                  batch_for_step(data, cfg, 0, where), 0)
+        out[where] = ({k: float(v) for k, v in m.items()},
+                      tree_map(lambda t: t.detach().cpu(), params),
+                      time.time() - t0)
+    (mg, pg, sg), (mc, pc, sc) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for a, b, s0 in zip(_tensors(pg), _tensors(pc), _tensors(start)):
+        want = b - s0
+        worst = max(worst, ((a - s0) - want).norm().item()
+                    / max(want.norm().item(), 1e-30))
+    rec = {"loss_card": mg["loss"], "loss_cpu": mc["loss"],
+           "gnorm_card": mg["gnorm"], "gnorm_cpu": mc["gnorm"],
+           "loss_rel": _rel(mg["loss"], mc["loss"]),
+           "gnorm_rel": _rel(mg["gnorm"], mc["gnorm"]),
+           "update_rel_l2_worst_leaf": worst,
+           "params_max_abs": max((a - b).abs().max().item()
+                                 for a, b in zip(_tensors(pg),
+                                                 _tensors(pc))),
+           "lr": mg["lr"], "card_s": sg, "cpu_s": sc}
+    print(f"[2j] card against CPU, {TRAIN_CUT_LAYERS} layers at full width, "
+          f"float32, 1 x {TRAIN_CPU_SEQ} tokens: loss {mg['loss']:.7f} / "
+          f"{mc['loss']:.7f} (rel {rec['loss_rel']:.2e}, limit "
+          f"{TRAIN_CPU_LOSS_RTOL:g}), grad norm {mg['gnorm']:.6f} / "
+          f"{mc['gnorm']:.6f} (rel {rec['gnorm_rel']:.2e}, limit "
+          f"{TRAIN_CPU_GNORM_RTOL:g}), update rel L2 worst leaf "
+          f"{worst:.2e} (limit {TRAIN_CPU_UPDATE_RTOL:g}), parameters max "
+          f"abs {rec['params_max_abs']:.2e} at lr {mg['lr']:.1e}; CPU "
+          f"{sc:.1f} s")
+    if not (rec["loss_rel"] <= TRAIN_CPU_LOSS_RTOL
+            and rec["gnorm_rel"] <= TRAIN_CPU_GNORM_RTOL
+            and worst <= TRAIN_CPU_UPDATE_RTOL):
+        raise RuntimeError(f"the card's train step differs from the CPU's: "
+                           f"{rec}")
+    return rec
+
+
+def train_end_to_end(seed: int, out_dir: Path) -> dict:
+    """Phase 2j, part 3: `train()` at 2 layers and full width: an
+    uninterrupted run, a run stopped with ``stop_after`` and resumed from
+    its checkpoint, a run preempted by SIGTERM; checkpoints in a directory
+    under ``out_dir`` that this phase deletes."""
+    import signal
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train as train_mod
+
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=out_dir))
+    real_step = train_mod.make_train_step
+
+    def run_cfg(name: str, **kw):
+        return train_mod.TrainRunConfig(
+            arch=TRAIN_ARCH, smoke=False, n_layers=TRAIN_CUT_LAYERS,
+            steps=TRAIN_CUT_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, grad_accum=TRAIN_CUT_ACCUM, warmup_steps=1,
+            ckpt_interval=2, log_interval=1, seed=seed,
+            ckpt_dir=str(tmp / name), device="cuda", **kw)
+
+    def metrics(name: str) -> list:
+        with open(tmp / name / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    def sigterm_at(step_at: int):
+        def make(*a, **kw):
+            step_fn = real_step(*a, **kw)
+
+            def wrapped(params, opt, comp, batch, step):
+                if step == step_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return step_fn(params, opt, comp, batch, step)
+            return wrapped
+        return make
+
+    rec = {}
+    try:
+        t0 = time.time()
+        full = train_mod.train(run_cfg("a"))
+        rec["uninterrupted_s"] = time.time() - t0
+        t0 = time.time()
+        stopped = train_mod.train(run_cfg("b", stop_after=2))
+        resumed = train_mod.train(run_cfg("b"))
+        rec["stop_resume_s"] = time.time() - t0
+        train_mod.make_train_step = sigterm_at(1)
+        try:
+            t0 = time.time()
+            preempted = train_mod.train(run_cfg("c"))
+            rec["preempted_s"] = time.time() - t0
+        finally:
+            train_mod.make_train_step = real_step
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (tmp / "a" / f"step_{4:010d}").iterdir())
+        a, b = metrics("a"), metrics("b")
+        rec.update(
+            checkpoint_bytes=ckpt_bytes,
+            losses=[m["loss"] for m in a], gnorms=[m["gnorm"] for m in a],
+            resumed_losses=[m["loss"] for m in b],
+            resumed_rel=max(_rel(mb["loss"], ma["loss"])
+                            for ma, mb in zip(a, b)),
+            stopped=stopped, preempted=preempted,
+            preempted_latest=Checkpointer(str(tmp / "c")).latest_step(),
+            resumed_latest=Checkpointer(str(tmp / "b")).latest_step())
+        print(f"[2j] train() at {TRAIN_CUT_LAYERS} layers, full width, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+              f"{', '.join(f'{x:.6f}' for x in rec['losses'])}, grad norms "
+              f"{', '.join(f'{x:.6f}' for x in rec['gnorms'])}; stopped at "
+              f"{stopped.get('stopped_at')} and resumed: losses "
+              f"{', '.join(f'{x:.6f}' for x in rec['resumed_losses'])} "
+              f"(worst rel {rec['resumed_rel']:.2e}, limit "
+              f"{TRAIN_RESTART_RTOL:g}); SIGTERM in step 1: stopped at "
+              f"{preempted.get('stopped_at')}, latest committed "
+              f"{rec['preempted_latest']}; checkpoint "
+              f"{ckpt_bytes / 1e9:.2f} GB; {rec['uninterrupted_s']:.1f} / "
+              f"{rec['stop_resume_s']:.1f} / {rec['preempted_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    values = rec["losses"] + rec["gnorms"] + rec["resumed_losses"]
+    if not all(math.isfinite(x) for x in values):
+        raise RuntimeError(f"non-finite loss or grad norm: {values}")
+    if full.get("finished") != TRAIN_CUT_STEPS \
+            or resumed.get("finished") != TRAIN_CUT_STEPS \
+            or stopped.get("stopped_at") != 2:
+        raise RuntimeError(f"train() runs ended wrongly: {full}, {stopped}, "
+                           f"{resumed}")
+    if len(rec["resumed_losses"]) != TRAIN_CUT_STEPS \
+            or rec["resumed_rel"] > TRAIN_RESTART_RTOL:
+        raise RuntimeError(f"the resumed run differs from the uninterrupted "
+                           f"one: {rec['losses']} against "
+                           f"{rec['resumed_losses']}")
+    if preempted.get("stopped_at") != 2 or rec["preempted_latest"] != 2 \
+            or rec["resumed_latest"] != TRAIN_CUT_STEPS:
+        raise RuntimeError(f"preemption: {preempted}, latest committed "
+                           f"{rec['preempted_latest']}")
+    return rec
+
+
+def flash_refuses_autograd() -> str:
+    """Phase 2j, part 4: the flash kernel's wrapper raises under autograd
+    on the card, before any launch."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q, k, v = (torch.randn((4, 256, 128), device="cuda",
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    try:
+        flash_attention(q, k, v)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        return str(e)
+    raise RuntimeError("flash_attention under autograd on the card returned "
+                       "an output with no gradient instead of raising")
 
 
 def main() -> int:
@@ -2406,13 +2783,37 @@ def main() -> int:
     print(f"[2i] launches over the six prefills and decodes: "
           f"{fam_launches}; {record['lm_families']['seconds']:.1f} s")
 
+    # ---- 2j. LM training: stablelm-3b at full width -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[2j] {held / 2**30:.2f} GiB still held before training")
+    t_train = time.time()
+    _cuda.reset_launches()
+    record["train"] = {"held_before_bytes": held,
+                       "full": train_full_width(SEED + 90, out_dir)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["train"]["card_vs_cpu"] = train_card_vs_cpu(SEED + 91)
+    record["train"]["end_to_end"] = train_end_to_end(SEED + 92, out_dir)
+    refusal = flash_refuses_autograd()
+    train_launches = _cuda.launch_counts()
+    if any(train_launches.values()):
+        raise RuntimeError(f"the training path launched kernels: "
+                           f"{train_launches}")
+    record["train"]["seconds"] = time.time() - t_train
+    print(f"[2j] no kernel launched over training (blockwise attention); "
+          f"flash_attention under autograd on the card raises: "
+          f"\"{refusal}\"; {record['train']['seconds']:.1f} s")
+
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
         entry["launches_tune_fleet"] = rest_launches[name]
         entry["launches_lm_families"] = fam_launches[name]
+        entry["launches_train"] = train_launches[name]
         entry["launches"] += sv[name] + rest_launches[name] \
-            + fam_launches[name]
+            + fam_launches[name] + train_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

@@ -1,6 +1,6 @@
 """GenPairX paired-end read mapping in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a), and the serving path of the LM
-substrate that repro carries beside it.
+kernels for NVIDIA Hopper (sm_90a), and the serving and training paths
+of the LM substrate that repro carries beside it.
 
 The package mirrors `repro`'s layout (`core/`, `kernels/<family>/`,
 `engine/`, `configs/`, `models/`) so each module has an obvious counterpart, but it imports
@@ -31,7 +31,11 @@ hand-written flash attention kernel::
     logits, cache = prefill_step(params, {"tokens": tokens}, cfg, max_len)
     logits, cache = decode_step(params, cache, next_tokens, cfg)
 
-Its parameters, caches and smoke batches are made on the GPU
+and trains it on one device (``python -m repro_torch.launch.train``:
+`models.model.loss_fn`, `optim`, `checkpoint.Checkpointer`, the
+sharding rules of `sharding.partition` and `runtime.elastic`).
+
+Its parameters, caches, batches and trainer are made on the GPU
 (``device="cuda"``) unless the caller asks for the CPU.  Mapper sessions
 run on the GPU (``ExecutionConfig.device="cuda"``) unless the caller
 asks for the CPU, where every kernel is replaced by its plain PyTorch

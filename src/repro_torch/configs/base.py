@@ -53,7 +53,7 @@ class ModelConfig:
     # numerics / execution
     dtype: str = "bfloat16"     # activation/compute dtype
     param_dtype: str = "float32"
-    remat: bool = True          # no effect here (no backward pass yet)
+    remat: bool = True          # layer bodies under torch.utils.checkpoint
     attn_impl: str = "blockwise"   # dense | blockwise | triangle | pallas
     unroll_scans: bool = False     # no effect here (layers are a loop)
     attn_block_q: int = 512

@@ -1,8 +1,9 @@
 """Carry state from the JAX package into this one.
 
 The mapper has no weights; its state is the index and the reference.
-The LM serving path has weights: `lm_params_from_jax` carries a JAX
-parameter tree across.  These helpers take the JAX package's arrays and config fields as plain
+The LM path has weights: `lm_params_from_jax` carries a JAX
+parameter tree across, and `opt_state_from_jax` /
+`compress_state_from_jax` its optimizer and gradient-codec state.  These helpers take the JAX package's arrays and config fields as plain
 numpy / dicts (``np.asarray`` of its `SeedMap` / `PaddedSeedMap` /
 `ShardedSeedMap` fields,
 ``dataclasses.asdict`` of its configs), so both packages can map against
@@ -23,6 +24,9 @@ from repro_torch.core.scoring import Scoring
 from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig
 from repro_torch.models.template import leaves
 from repro_torch.models.transformer import model_template
+from repro_torch.optim.adamw import OptState
+from repro_torch.optim.compress import CompressState
+from repro_torch.tree import tree_map
 
 #: JAX PipelineConfig fields with no counterpart here: the per-family
 #: kernel backends (a session here has one backend, `ExecutionConfig.
@@ -138,10 +142,34 @@ def lm_params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
         *parents, last = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        if arr.dtype.name == "bfloat16":   # ml_dtypes: no numpy dtype in torch
-            t = torch.from_numpy(arr.view(np.uint16).copy()).view(
-                torch.bfloat16)
-        else:
-            t = torch.as_tensor(arr.copy())
-        node[last] = t.to(device)
+        node[last] = _tensor(arr, device)
     return out
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A copy of a numpy array (ml_dtypes bfloat16 included) on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes: no numpy dtype in torch
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr.copy())
+    return t.to(device)
+
+
+def opt_state_from_jax(state_np, device="cpu") -> OptState:
+    """The JAX package's `OptState` (m, v, step) with numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, state)`` -> this package's: AdamW's m and v
+    trees, or Adafactor's () and v tree whose factored leaves are (row,
+    col) tuples; the step an int32 0-d tensor."""
+    m, v, step = state_np
+    return OptState(tree_map(lambda a: _tensor(a, device), m),
+                    tree_map(lambda a: _tensor(a, device), v),
+                    torch.as_tensor(np.array(step, np.int32),
+                                    device=device))
+
+
+def compress_state_from_jax(state_np, device="cpu") -> CompressState:
+    """The JAX package's `CompressState` (its int8 error tree, or ()) with
+    numpy leaves -> this package's."""
+    return CompressState(tree_map(lambda a: _tensor(a, device),
+                                  state_np.error))

@@ -71,7 +71,7 @@ from repro_torch.engine.stats import (
     init_stage_totals,
 )
 from repro_torch.engine.multihost import fleet_batch_target
-from repro_torch.engine.stream import pad_tail, to_device, tree_map
+from repro_torch.engine.stream import pad_tail, to_device
 from repro_torch.runtime.preemption import PreemptionGuard
 from repro_torch.runtime.watchdog import (
     EVICT,
@@ -79,6 +79,7 @@ from repro_torch.runtime.watchdog import (
     Watchdog,
     WatchdogConfig,
 )
+from repro_torch.tree import tree_map
 
 LANE_PAIRS, LANE_LONG = "pairs", "long"
 

@@ -73,9 +73,9 @@ from repro_torch.engine.stream import (
     run_stream,
     split_batch,
     to_device,
-    tree_map,
 )
 from repro_torch.kernels._util import kernel_reference
+from repro_torch.tree import tree_map
 
 
 def _as_device(x, device: torch.device, dtype) -> torch.Tensor:

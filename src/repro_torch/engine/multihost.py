@@ -67,7 +67,6 @@ from repro_torch.engine.stream import (
     pad_tail,
     split_batch,
     to_device,
-    tree_map,
 )
 from repro_torch.runtime.watchdog import (
     DEGRADED,
@@ -76,6 +75,7 @@ from repro_torch.runtime.watchdog import (
     Watchdog,
     WatchdogConfig,
 )
+from repro_torch.tree import tree_map
 
 #: the denominator stat key per lane: a sum of the global ``n_valid``
 #: mask, so it is also the fleet-wide item count

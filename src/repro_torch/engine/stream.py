@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.stats import stage_fractions
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -83,22 +84,6 @@ def split_batch(item, n_arrays: int = 2):
             f"stream batch items must have {n_arrays} read arrays plus an "
             f"optional aux tree; got a length-{len(item)} tuple")
     return tuple(item[:n_arrays]), item[n_arrays]
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to the array leaves of a tuple/list/dict aux tree, as
-    `jax.tree.map` does: each container keeps its type (a namedtuple is
-    rebuilt field by field) and ``None`` is an empty subtree, kept."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        mapped = [tree_map(fn, v) for v in tree]
-        if hasattr(tree, "_fields"):
-            return type(tree)(*mapped)
-        return type(tree)(mapped)
-    return fn(tree)
 
 
 def to_device(arr, device: torch.device) -> torch.Tensor:

@@ -11,6 +11,11 @@ float32: any head up to 128 wide is zero-padded to the next of them
 (`kernel_head_dim`; in bf16 80 and 112 go to 128, in float32 112 does)
 under the original scale, which adds exact zeros to every score and gives
 zero output columns, cut off.  A head wider than 128 raises.
+
+The kernel has no backward: under autograd (grad mode on and any of q,
+k, v requiring grad) the kernel backend raises, as a gradient through
+repro's Pallas kernel does, rather than return an output with no
+``grad_fn``.  The plain version stays differentiable.
 """
 from __future__ import annotations
 
@@ -69,6 +74,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = D ** -0.5
     if backend == "torch":
         return attention_ref(q, k, v, causal, sm_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash_attention kernel has no backward: under autograd "
+            "use backend='torch' or the blockwise attention "
+            "(ModelConfig.use_flash_kernel=False)")
     d_pad = kernel_head_dim(D, q.dtype) - D
     for name, t in (("q", q), ("k", k), ("v", v)):
         _cuda.check(t, name, q.dtype)

@@ -1,13 +1,14 @@
-"""Public model API of the serving path: parameters, prefill and decode
+"""Public model API: parameters, the training loss, prefill and decode
 steps, and a smoke batch.
 
 Runs on the GPU unless the caller asks for the CPU (``device="cpu"``);
-the steps run wherever the parameters live.
+the loss and the steps run wherever the parameters live.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.template import init_params
@@ -23,6 +24,84 @@ def model_init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` (a `torch.Generator` on that device)."""
     return init_params(model_template(cfg), generator, cfg.param_dtype,
                        device)
+
+
+# --------------------------------------------------------------- loss ------
+MOE_AUX_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-3
+
+
+def _lse_and_label_logit(logits, labels):
+    """logsumexp(logits) and logits[label] at each position: the label
+    logit picked by an iota compare and a select-sum, as the JAX package
+    picks it (a label outside [0, V) picks 0)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.where(iota == labels[..., None], logits, 0).sum(-1)
+    return lse, ll
+
+
+def cross_entropy(logits, labels, mask):
+    """Mean next-token loss over the masked positions.
+
+    logits (..., V) float32, labels (...) int, mask (...) bool.
+    """
+    lse, ll = _lse_and_label_logit(logits, labels)
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+def chunked_xent(params, x, labels, cfg: ModelConfig, n_chunks: int = 8):
+    """Head projection + cross-entropy in sequence chunks.
+
+    Each chunk's (B, S / nc, V) float32 logits are computed under
+    `torch.utils.checkpoint` and recomputed in backward (the JAX
+    package's ``jax.checkpoint`` of its scan body), so one chunk's block
+    is live at a time.  ``nc`` is the largest count up to ``n_chunks``
+    that divides S.  Returns the mean over all B * S positions.
+    """
+    B, S, _ = x.shape
+    nc = n_chunks
+    while S % nc:
+        nc -= 1
+
+    def body(xc, lc):
+        lse, ll = _lse_and_label_logit(_logits(params, cfg, xc), lc)
+        return (lse - ll).sum()
+
+    tot = torch.zeros((), device=x.device)
+    for xc, lc in zip(x.chunk(nc, dim=1), labels.chunk(nc, dim=1)):
+        tot = tot + torch.utils.checkpoint.checkpoint(
+            body, xc, lc, use_reentrant=False)
+    return tot / (B * S)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto"):
+    """The training loss of ``batch`` ({tokens, labels}; vlm also
+    vision_embeds): (loss, {"loss": loss}).
+
+    audio: cross-entropy over the (B, S, K, V) logits of its K heads; vlm:
+    over the text positions only (the patch prefix is input only); the
+    other families through `chunked_xent`; moe adds
+    ``MOE_AUX_WEIGHT * balance_loss + Z_LOSS_WEIGHT * z_loss``.
+    ``backend`` is the flash kernel's (`forward`).
+    """
+    labels = batch["labels"]
+    if cfg.family == "audio":
+        logits, aux = forward(params, cfg, batch, backend=backend)
+        mask = torch.ones(labels.shape, dtype=torch.bool,
+                          device=labels.device)
+        loss = cross_entropy(logits, labels, mask)
+    else:
+        x, aux = forward(params, cfg, batch, return_hidden=True,
+                         backend=backend)
+        if cfg.family == "vlm":
+            x = x[:, -labels.shape[1]:]
+        loss = chunked_xent(params, x, labels, cfg)
+    if cfg.family == "moe":
+        loss = loss + MOE_AUX_WEIGHT * aux["balance_loss"] \
+            + Z_LOSS_WEIGHT * aux["z_loss"]
+    return loss, {"loss": loss}
 
 
 # ------------------------------------------------------------ serving ------

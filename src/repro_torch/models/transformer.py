@@ -18,16 +18,22 @@ Cache protocol, as in the JAX package:
   forward(cache=DecodeCache, S == 1)       decode: one token
 
 Layers run as a Python loop over the layer-stacked ``(L, ...)`` (hybrid:
-``(G, per, ...)``) parameters, the JAX package's lax.scan; remat and
-unroll change no value and have no counterpart here, nor do the sharding
+``(G, per, ...)``) parameters, the JAX package's lax.scan: each stacked
+leaf is unbound once a forward (`unstack_layers`), so a backward pass
+stacks the per-layer gradients once.  With ``cfg.remat`` a forward that
+builds a graph runs each layer body (hybrid: each group body) under
+`torch.utils.checkpoint`, the JAX package's ``jax.checkpoint``; unroll
+changes no value and has no counterpart here, nor do the sharding
 constraints, which are the identity without a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.seed_gather.ref import normalise_ids
@@ -96,11 +102,35 @@ def model_template(cfg: ModelConfig) -> dict:
     return t
 
 
-def layer_params(lp, i: int):
-    """Layer ``i``'s parameters: views of the layer-stacked tree."""
+def unstack_layers(lp) -> list:
+    """Each layer's parameters of a layer-stacked tree: every leaf unbound
+    once along its leading dim.  Under autograd one ``UnbindBackward``
+    then stacks a leaf's per-layer gradients once, where indexing
+    ``leaf[i]`` would give each layer's gradient a zero tensor the size of
+    the whole stack."""
     if isinstance(lp, dict):
-        return {k: layer_params(v, i) for k, v in lp.items()}
-    return lp[i]
+        per_key = {k: unstack_layers(v) for k, v in lp.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(lp.unbind(0))
+
+
+def _builds_graph(params) -> bool:
+    """Whether a forward over ``params`` records a graph for backward."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(params, dict):
+        return any(_builds_graph(v) for v in params.values())
+    return params.requires_grad
+
+
+def _remat(fn, on: bool):
+    """``fn``, or ``fn`` under `torch.utils.checkpoint` (its activations
+    recomputed in backward, as ``jax.checkpoint`` does)."""
+    if not on:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
 
 
 # ============================================================= caches ======
@@ -266,14 +296,16 @@ def forward(params, cfg: ModelConfig, batch: dict,
     cache_len = cache.length if decode else None
     zero = torch.zeros((), device=x.device)
     aux = {"balance_loss": zero, "z_loss": zero}
+    remat = cfg.remat and not decode and _builds_graph(params)
     lp = params["layers"]
     cache_out = None
 
     if cfg.family == "ssm":
         states = []
-        for i in range(cfg.n_layers):
+        ssm_block = _remat(_ssm_block, remat)
+        for i, pi in enumerate(unstack_layers(lp)):
             st = _state_at(cache.ssm, i) if decode else None
-            x, nst = _ssm_block(layer_params(lp, i), x, cfg, st)
+            x, nst = ssm_block(pi, x, cfg, st)
             if decode:
                 _write_state(cache.ssm, i, nst)
             elif collect:
@@ -287,21 +319,29 @@ def forward(params, cfg: ModelConfig, batch: dict,
     elif cfg.family == "hybrid":
         G, per = _groups(cfg)
         dense_cfg = dataclasses.replace(cfg, family="dense")
-        states, ks, vs = [], [], []
-        for g in range(G):
-            pg = layer_params(lp, g)
-            for j in range(per):
+
+        def group_body(x, pg, g):
+            """``per`` SSM layers, then the shared block: (x, the SSM
+            layers' new states, the shared block's (k, v))."""
+            nsts = []
+            for j, pj in enumerate(unstack_layers(pg)):
                 st = _state_at(cache.ssm, (g, j)) if decode else None
-                x, nst = _ssm_block(layer_params(pg, j), x, cfg, st)
+                x, nst = _ssm_block(pj, x, cfg, st)
                 if decode:
                     _write_state(cache.ssm, (g, j), nst)
-                elif collect:
-                    states.append(nst)
+                nsts.append(nst)
             kv = (cache.kv_k[g], cache.kv_v[g]) if decode else None
             x, nkv, _ = _dense_block(params["shared"], x, dense_cfg,
                                      positions, kv, cache_len, positions_thw,
                                      moe_groups, backend)
+            return x, nsts, nkv
+
+        group_body = _remat(group_body, remat)
+        states, ks, vs = [], [], []
+        for g, pg in enumerate(unstack_layers(lp)):
+            x, nsts, nkv = group_body(x, pg, g)
             if collect:
+                states.extend(nsts)
                 ks.append(nkv[0])
                 vs.append(nkv[1])
         if decode:
@@ -312,11 +352,12 @@ def forward(params, cfg: ModelConfig, batch: dict,
 
     else:  # dense / moe / vlm / audio
         ks, vs = [], []
-        for i in range(cfg.n_layers):
+        block = _remat(_dense_block, remat)
+        for i, pi in enumerate(unstack_layers(lp)):
             kv = (cache.kv_k[i], cache.kv_v[i]) if decode else None
-            x, nkv, layer_aux = _dense_block(
-                layer_params(lp, i), x, cfg, positions, kv, cache_len,
-                positions_thw, moe_groups, backend)
+            x, nkv, layer_aux = block(
+                pi, x, cfg, positions, kv, cache_len, positions_thw,
+                moe_groups, backend)
             if layer_aux is not None and not decode:
                 aux = {k: aux[k] + layer_aux[k] for k in aux}
             if collect:

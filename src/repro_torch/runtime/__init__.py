@@ -1,5 +1,7 @@
-"""Host-side fault tolerance for serving: the straggler watchdog, the
-SIGTERM preemption guard and the deterministic chaos schedule."""
+"""Host-side fault tolerance: the straggler watchdog, the SIGTERM
+preemption guard, the deterministic chaos schedule and elastic
+re-meshing."""
+from repro_torch.runtime.elastic import RemeshPlan, build_mesh, plan_remesh
 from repro_torch.runtime.faultinject import ChaosSpec, Fault, inject
 from repro_torch.runtime.preemption import PreemptionGuard
 from repro_torch.runtime.watchdog import (
@@ -8,5 +10,6 @@ from repro_torch.runtime.watchdog import (
 
 __all__ = [
     "ChaosSpec", "DEGRADED", "EVICT", "Fault", "HEALTHY",
-    "PreemptionGuard", "Watchdog", "WatchdogConfig", "inject",
+    "PreemptionGuard", "RemeshPlan", "Watchdog", "WatchdogConfig",
+    "build_mesh", "inject", "plan_remesh",
 ]

@@ -1,0 +1,182 @@
+"""Logical-axis sharding rules (DP / FSDP / TP / EP / SP on one mesh).
+
+Every parameter in the model template carries a tuple of *logical* axis
+names; this module maps them onto mesh axes by the JAX package's table.
+A spec is a tuple with one entry per tensor dim: None (replicated), a
+mesh axis name, or a tuple of names (the dim split over those axes,
+the first one major).  On a `DeviceMesh` a spec becomes one DTensor
+placement per mesh dim (`Sharding.placements`); a dim that its mesh
+axes do not divide degrades to replication.  Without a mesh every
+constraint is the identity: the models take no mesh argument and run on
+a (1, 1) mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+# Logical axis vocabulary used by model templates.
+#   layers/groups: stacked layer dims, never sharded
+#   embed:    d_model dim of weights (FSDP target)
+#   q_heads:  fused head*head_dim output dim of attention projections (TP)
+#   kv_heads: fused kv_head*head_dim dim (TP only if divisible)
+#   ff:       dense FFN hidden (TP)
+#   ff_expert: per-expert FFN hidden (unsharded; experts carry the TP)
+#   experts:  MoE expert dim (EP -> "model")
+#   vocab:    embedding/vocab dim (TP)
+#   ssm_inner: mamba d_inner (TP)
+#   ssm_heads: mamba head dim (TP)
+#   norep:    always replicated
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """logical axis -> mesh axis (or None). fsdp=False drops the FSDP dim."""
+
+    tensor_axis: str = "model"
+    fsdp_axis: str | None = "data"   # None disables FSDP (pure replication)
+    batch_axes: tuple = ("data",)    # activations; multi-pod: ("pod","data")
+    seq_axis: str | None = None      # SP for long-context decode caches
+    act_seq_axis: str | None = "model"  # Megatron-SP: residual activations
+                                        # sharded seq-wise over the TP axis
+
+    def logical_to_mesh(self) -> dict:
+        t, f = self.tensor_axis, self.fsdp_axis
+        return {
+            "layers": None,
+            "groups": None,
+            "embed": f,
+            "q_heads": t,
+            "kv_heads": t,      # dropped at spec time if not divisible
+            "ff": t,
+            "ff_expert": None,
+            "experts": t,
+            "vocab": t,
+            "ssm_inner": t,
+            "ssm_heads": t,
+            "ssm_state": None,
+            "conv": None,
+            "codebooks": None,
+            "norep": None,
+            "batch": self.batch_axes,
+            "seq": self.seq_axis,
+            "actseq": self.act_seq_axis,
+            # MoE routing groups spread over every mesh axis
+            "moe_groups": tuple(self.batch_axes) + (self.tensor_axis,),
+        }
+
+
+PROD_RULES = ShardingRules()
+MULTIPOD_RULES = ShardingRules(batch_axes=("pod", "data"))
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """{axis name: size} of a `DeviceMesh`, in mesh-dim order."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes_of(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_for(axes: tuple, rules: ShardingRules, shape: tuple | None = None,
+             mesh=None) -> tuple:
+    """Map a tuple of logical axes to a spec.
+
+    If ``shape`` and ``mesh`` (a `DeviceMesh`) are given,
+    any dim not divisible by its mesh axes' size degrades to replication
+    (e.g. 4 kv heads on a 16-way model axis).
+    """
+    table = rules.logical_to_mesh()
+    sizes = mesh_axis_sizes(mesh) if mesh is not None else None
+    out = []
+    for i, ax in enumerate(axes):
+        m = table.get(ax)
+        if m is None:
+            out.append(None)
+            continue
+        if shape is not None and sizes is not None:
+            size = 1
+            for a in _axes_of(m):
+                size *= sizes[a]
+            if shape[i] % size != 0:
+                out.append(None)
+                continue
+        out.append(m)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on a mesh (the counterpart of jax's ``NamedSharding``)."""
+
+    mesh: Any        # a DeviceMesh
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        """One DTensor placement per mesh dim: ``Shard(i)`` for the tensor
+        dim ``i`` its axis splits, else ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in mesh_axis_sizes(self.mesh):
+            dims = [i for i, e in enumerate(self.spec)
+                    if e is not None and name in _axes_of(e)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    def local_index(self, shape: tuple, coordinate) -> tuple:
+        """The slices of a ``shape`` array held at mesh ``coordinate`` (one
+        index per mesh dim): each split dim cut into equal parts, its
+        axes' coordinates read row-major."""
+        sizes = mesh_axis_sizes(self.mesh)
+        names = list(sizes)
+        index = []
+        for i, n in enumerate(shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            if entry is None:
+                index.append(slice(None))
+                continue
+            part, parts = 0, 1
+            for a in _axes_of(entry):
+                part = part * sizes[a] + coordinate[names.index(a)]
+                parts *= sizes[a]
+            size = n // parts
+            index.append(slice(part * size, (part + 1) * size))
+        return tuple(index)
+
+
+def tree_shardings(mesh, axes_tree, shape_tree, rules: ShardingRules):
+    """A dict tree of logical-axes tuples + a tree of the same structure
+    with shapes (tensors or anything with ``.shape``) -> a tree of
+    `Sharding`."""
+    if isinstance(axes_tree, dict):
+        return {k: tree_shardings(mesh, axes_tree[k], shape_tree[k], rules)
+                for k in axes_tree}
+    return Sharding(mesh, spec_for(axes_tree, rules,
+                                   tuple(shape_tree.shape), mesh))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh + rules bundle.  mesh=None turns every constraint into a
+    no-op."""
+
+    mesh: Any = None
+    rules: ShardingRules = PROD_RULES
+
+
+NO_SHARD = ShardCtx(mesh=None)
+
+
+def constrain(x, ctx: ShardCtx, *axes):
+    """Place ``x`` by logical axes: the identity without a mesh; a DTensor
+    is redistributed to the spec's placements, and a plain tensor (this
+    rank's whole array) passes unchanged."""
+    if ctx is None or ctx.mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = spec_for(axes, ctx.rules, tuple(x.shape), ctx.mesh)
+    return x.redistribute(ctx.mesh, Sharding(ctx.mesh, spec).placements)

@@ -3,7 +3,9 @@ card.  Every comparison of the mapping kernels is exact equality (all
 integer arithmetic); flash_attention, a float kernel, is held within 1e-4
 (float32: the sums run in another order) or 3e-2 (bf16, repro's bf16
 tolerance) of its plain version, and the LM prefill through it within a
-relative L2 error of 1e-2 of the plain-backend prefill.
+relative L2 error of 1e-2 of the plain-backend prefill.  One train step
+on the card is held against the same step on the CPU (tolerances at the
+test), and the flash wrapper must refuse autograd on the card.
 
 Run on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -19,7 +21,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.encoding import pack_2bit
 from repro_torch.core.light_align import cigar_ops
 from repro_torch.core.pipeline import PipelineConfig
@@ -52,9 +54,14 @@ from repro_torch.kernels.pair_frontend.ref import (
 from repro_torch.kernels.residual_dp.ops import residual_pair_dp
 from repro_torch.kernels.seed_gather.ops import seed_gather
 from repro_torch.kernels.xxhash.ops import xxhash32
+from repro_torch.data.pipeline import DataConfig, batch_for_step
+from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import make_smoke_batch, model_init_params
 from repro_torch.models.model import prefill_step
+from repro_torch.optim import adamw
+from repro_torch.optim.compress import CompressConfig, init_state
+from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -1005,3 +1012,59 @@ def test_geometry_past_the_limits_raises_before_launch(dev):
     with pytest.raises(ValueError, match="pairs a block"):
         candidate_pair_align(ref, r1, r2, p1, p2, 8, block=233,
                              backend="cuda")
+
+
+# ------------------------------------------------------------ LM training --
+@pytest.mark.parametrize("codec,grad_accum", [("none", 1), ("int8", 2)])
+def test_train_step_on_the_card_matches_the_cpu(dev, codec, grad_accum):
+    """One `make_train_step` of stablelm-3b's smoke config in float32 (256
+    positions: the blockwise route) on the card and on the CPU from the
+    same parameters and batch: the loss within 1e-5 and the grad norm
+    within 1e-4 relative (float32 sums in other orders), and each leaf's
+    update within 1e-3 of its L2 norm (AdamW's first update is
+    ~lr * g / (|g| + eps): only entries with a gradient within a few eps of
+    0, or an int8 rounding boundary, can move)."""
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"),
+                              dtype="float32")
+    run = train_mod.TrainRunConfig(arch="stablelm-3b", seq_len=256,
+                                   global_batch=4, grad_accum=grad_accum,
+                                   warmup_steps=0, device="cuda")
+    opt_cfg = adamw.OptConfig(lr=run.peak_lr)
+    ccfg = CompressConfig(codec=codec)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                      global_batch=4, seed=3)
+    start = model_init_params(cfg, torch.Generator().manual_seed(4),
+                              device="cpu")
+    out = {}
+    for where in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.clone().to(where), start)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        step_fn = train_mod.make_train_step(cfg, opt_cfg, run, ccfg)
+        params, _, _, m = step_fn(params, adamw.init(params, opt_cfg),
+                                  init_state(params, ccfg),
+                                  batch_for_step(data, cfg, 0, where), 0)
+        out[where] = ({k: v.item() for k, v in m.items()},
+                      [p.detach().cpu() for p in tree_leaves(params)])
+    (mg, pg), (mc, pc) = out["cuda"], out["cpu"]
+    assert mg["loss"] == pytest.approx(mc["loss"], rel=1e-5)
+    assert mg["gnorm"] == pytest.approx(mc["gnorm"], rel=1e-4)
+    for a, b, s0 in zip(pg, pc, tree_leaves(start)):
+        assert torch.isfinite(a).all()
+        assert ((a - s0) - (b - s0)).norm() <= 1e-3 * (b - s0).norm()
+
+
+def test_flash_attention_refuses_autograd_on_the_card(dev):
+    q, k, v = (torch.randn((4, 256, 64), device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    _cuda.reset_launches()
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(q, k, v)
+        t.requires_grad_(False)
+    assert _cuda.launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        q.requires_grad_(True)
+        flash_attention(q, k, v)       # no graph: the kernel runs
+    assert _cuda.launch_counts()["flash_attention"] == 1

@@ -200,7 +200,7 @@ def test_mlp_forward_matches_repro():
     jp, tp = _params(jc, tc)
     x = np.random.default_rng(13).normal(size=(2, 8, 64)).astype(np.float32)
     jm = jax.tree.map(lambda a: a[0], jp["layers"]["mlp"])
-    tm = ttrans.layer_params(tp["layers"]["mlp"], 0)
+    tm = ttrans.unstack_layers(tp["layers"]["mlp"])[0]
     np.testing.assert_allclose(TL.mlp_forward(tm, _t(x)).numpy(),
                                _np(JL.mlp_forward(jm, x, ShardCtx())),
                                atol=1e-5, rtol=1e-5)
@@ -217,7 +217,7 @@ def test_attention_forward_gqa_matches_repro(flash, interpret_model,
         np.float32)
     pos = np.broadcast_to(np.arange(256, dtype=np.int32), (2, 256))
     ja = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
-    ta = ttrans.layer_params(tp["layers"]["attn"], 0)
+    ta = ttrans.unstack_layers(tp["layers"]["attn"])[0]
     calls = []
     real = TL.flash_attention
     monkeypatch.setattr(TL, "flash_attention",

@@ -177,7 +177,7 @@ def test_attention_forward_triangle_and_mrope_match_repro():
     pos = np.broadcast_to(np.arange(160, dtype=np.int32), (2, 160))
     thw = rng.integers(0, 160, (2, 160, 3)).astype(np.int32)
     ja = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
-    ta = ttrans.layer_params(tp["layers"]["attn"], 0)
+    ta = ttrans.unstack_layers(tp["layers"]["attn"])[0]
     want, (jk, _) = jax.jit(JL.attention_forward, static_argnums=(2, 3))(
         ja, x, jc, ShardCtx(), pos, positions_thw=thw)
     got, (tk, _) = TL.attention_forward(ta, _t(x), tc, _t(pos).long(),

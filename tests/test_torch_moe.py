@@ -123,7 +123,7 @@ def test_moe_forward_matches_repro(name, cf, groups, zero):
             jp["layers"]["moe"]["router"])
     tp = lm_params_from_jax(jax.tree.map(np.asarray, jp), tc)
     jm = jax.tree.map(lambda a: a[0], jp["layers"]["moe"])
-    tm_ = ttrans.layer_params(tp["layers"]["moe"], 0)
+    tm_ = ttrans.unstack_layers(tp["layers"]["moe"])[0]
     x = np.random.default_rng(51).normal(size=(2, 24, 64)).astype(
         np.float32)
     want, jaux = jax.jit(JM.moe_forward, static_argnums=(2, 3, 4))(

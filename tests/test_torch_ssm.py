@@ -123,7 +123,7 @@ def _mamba(name="mamba2-2.7b", dtype="float32"):
             rng.normal(size=shape).astype(np.float32) * 0.5)
     tp = lm_params_from_jax(jax.tree.map(np.asarray, jp), tc)
     return (jc, tc, jax.tree.map(lambda a: a[0], jp["layers"]["mamba"]),
-            ttrans.layer_params(tp["layers"]["mamba"], 0))
+            ttrans.unstack_layers(tp["layers"]["mamba"])[0])
 
 
 def test_mamba_forward_prefill_and_step_match_repro():
