@@ -142,6 +142,17 @@ Phases (any failure exits non-zero; nothing is caught):
      within rel 1e-6) and preempted by SIGTERM (~3.5 GB checkpoints in a
      directory under chiprun_out/ that the phase deletes); the flash
      wrapper raising under autograd; no kernel launched;
+  2k. the trainer's mesh path (FSDP over "data", tensor parallelism over
+     "model") on a one-rank NCCL group over a file store and a (1, 1)
+     ("data", "model") mesh, after 2j frees its state: 2j's model, seed
+     and batch through `make_train_step` with the mesh, one warm-up and 2
+     timed steps (ms a step and tokens/s beside 2j's, peak memory, the
+     bytes of parameters and moments the rank holds; the first step's
+     loss and grad norm equal to 2j's first within rel 1e-6, bit for bit
+     expected), and `train()` at 2 layers, one-device and on the mesh:
+     the same checkpoint files byte for byte, and the one-device trainer
+     resumes from the mesh's checkpoint to the same loss; no kernel
+     launched;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -251,6 +262,13 @@ SSM_FORCED_CHUNK = 16
 # sequence (59-61 % of a one-sequence micro-batch idle in this phase's
 # device profile on an H100 80GB HBM3 at 700 W, PERF.md section 5), so
 # two sequences a micro-batch halve the launches of a step.
+# The step peaks at ~64 GiB beside the earlier phases' 8.65: within the
+# card's 79.2 GiB, but a step that reuses the cache the step before left
+# can find its free memory in pieces too small for a 2.1 GiB block (step
+# 1 ran out of memory once on an H100 80GB HBM3 at 700 W with 60.5 GiB
+# allocated and 15.7 GiB reserved but free).  Each timed step therefore
+# starts from an empty cache, as the first does; its time includes the
+# cache's cudaMalloc calls.
 TRAIN_ARCH = "stablelm-3b"
 TRAIN_SEQ = 4_096
 TRAIN_BATCH = 8
@@ -278,6 +296,20 @@ TRAIN_CPU_SEQ = 1_024
 TRAIN_CPU_LOSS_RTOL = 1e-5
 TRAIN_CPU_GNORM_RTOL = 1e-4
 TRAIN_CPU_UPDATE_RTOL = 1e-3
+# Phase 2k: the trainer's mesh path (FSDP over "data", tensor parallelism
+# over "model") on a one-rank NCCL group and a (1, 1) mesh: 2j's model,
+# seed and batch through make_train_step with the mesh, one warm-up and
+# TRAIN_MESH_TIMED timed steps.  At world size 1 every collective is a
+# copy or nothing and the mesh path reorders no sum, so the first step's
+# loss and grad norm must equal 2j's within TRAIN_MESH_RTOL (and are
+# expected bit for bit).  Then train() at 2 layers, TRAIN_MESH_E2E_BATCH
+# x TRAIN_SEQ tokens a step, one-device and under the mesh: the same
+# checkpoint files byte for byte, and the one-device trainer resumes from
+# the mesh's checkpoint to the one-device run's next loss exactly.
+TRAIN_MESH_TIMED = 2
+TRAIN_MESH_RTOL = 1e-6
+TRAIN_MESH_E2E_BATCH = 2
+TRAIN_MESH_E2E_STEPS = 2
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
 # non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
@@ -769,6 +801,9 @@ def train_full_width(seed: int, out_dir: Path) -> dict:
     for step in range(1 + TRAIN_TIMED):
         batch = batch_for_step(data, cfg, step, dev)
         torch.cuda.synchronize()
+        # each step from the empty cache the first one had (the note
+        # above TRAIN_ARCH)
+        torch.cuda.empty_cache()
         t0 = time.time()
         params, opt_state, comp, m = step_fn(params, opt_state, comp, batch,
                                              step)
@@ -988,6 +1023,168 @@ def flash_refuses_autograd() -> str:
         return str(e)
     raise RuntimeError("flash_attention under autograd on the card returned "
                        "an output with no gradient instead of raising")
+
+
+def train_mesh_full_width(seed: int, mesh, first: dict) -> dict:
+    """Phase 2k, part 1: 2j's model, seed and batch through
+    `make_train_step` with a (1, 1) mesh on the one-rank NCCL group; the
+    first step against 2j's first (``first``)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import TrainRunConfig, make_train_step
+    from repro_torch.models.model import model_init_params, param_shardings
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig, init_state
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    run = TrainRunConfig(arch=TRAIN_ARCH, smoke=False, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+                         seed=seed, device="cuda")
+    opt_cfg = adamw.OptConfig(lr=run.peak_lr)
+    ccfg = CompressConfig()
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    psh = param_shardings(cfg, mesh)
+    params = model_init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev, psh, mesh.get_coordinate())
+    for p in _tensors(params):
+        p.requires_grad_(True)
+    opt_state = adamw.init(params, opt_cfg, psh)
+    comp = init_state(params, ccfg)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size()
+               for t in list(_tensors(params)) + list(_tensors(opt_state.m))
+               + list(_tensors(opt_state.v)))
+    rec = {"mesh": list(mesh.shape), "init_s": time.time() - t0,
+           "rank_state_bytes": held, "steps": []}
+    step_fn = make_train_step(cfg, opt_cfg, run, ccfg, mesh)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for step in range(1 + TRAIN_MESH_TIMED):
+        batch = batch_for_step(data, cfg, step, dev)
+        torch.cuda.synchronize()
+        # each step from the empty cache the first one had (the note
+        # above TRAIN_ARCH)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        params, opt_state, comp, m = step_fn(params, opt_state, comp, batch,
+                                             step)
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        rec["steps"].append({"step": step, "ms": ms, "loss": loss,
+                             "gnorm": gnorm})
+        print(f"[2k] {TRAIN_ARCH} on the (1, 1) mesh, step {step}"
+              f"{' (warm-up)' if step == 0 else ''}: {ms:.1f} ms, loss "
+              f"{loss:.6f}, grad norm {gnorm:.6f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"step {step}: loss {loss}, grad norm {gnorm}")
+    timed = [s["ms"] for s in rec["steps"][1:]]
+    rec["ms_per_step"] = sum(timed) / len(timed)
+    rec["tokens_per_s"] = tokens / (rec["ms_per_step"] / 1e3)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    s0 = rec["steps"][0]
+    rec["loss_rel"] = _rel(s0["loss"], first["loss"])
+    rec["gnorm_rel"] = _rel(s0["gnorm"], first["gnorm"])
+    rec["bit_identical"] = (s0["loss"] == first["loss"]
+                            and s0["gnorm"] == first["gnorm"])
+    print(f"[2k] mesh path {rec['ms_per_step']:.1f} ms a step "
+          f"({', '.join(f'{t:.1f}' for t in timed)}), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB, "
+          f"{held / 2**30:.2f} GiB of parameters and moments on the rank; "
+          f"first step against 2j's: loss rel {rec['loss_rel']:.2e}, grad "
+          f"norm rel {rec['gnorm_rel']:.2e} (limit {TRAIN_MESH_RTOL:g}; "
+          f"bit for bit: {rec['bit_identical']})")
+    if rec["loss_rel"] > TRAIN_MESH_RTOL or rec["gnorm_rel"] > \
+            TRAIN_MESH_RTOL:
+        raise RuntimeError(f"the mesh path's first step differs from 2j's: "
+                           f"{s0} against {first}")
+    return rec
+
+
+def train_mesh_end_to_end(seed: int, out_dir: Path, store: Path) -> dict:
+    """Phase 2k, part 2: train() at 2 layers and full width without a
+    process group, then on the one-rank NCCL group's (1, 1) mesh: the
+    same checkpoint files; the one-device trainer resumes from the mesh's
+    checkpoint.  Checkpoints in a directory under ``out_dir`` that this
+    phase deletes."""
+    import filecmp
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_mod
+
+    tmp = Path(tempfile.mkdtemp(prefix="train_mesh_", dir=out_dir))
+
+    def run_cfg(name: str, steps: int):
+        return train_mod.TrainRunConfig(
+            arch=TRAIN_ARCH, smoke=False, n_layers=TRAIN_CUT_LAYERS,
+            steps=steps, global_batch=TRAIN_MESH_E2E_BATCH,
+            seq_len=TRAIN_SEQ, warmup_steps=1, ckpt_interval=steps,
+            log_interval=100, seed=seed, ckpt_dir=str(tmp / name),
+            device="cuda")
+
+    def metrics(name: str) -> list:
+        with open(tmp / name / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    rec = {}
+    try:
+        n = TRAIN_MESH_E2E_STEPS
+        t0 = time.time()
+        train_mod.train(run_cfg("one", n))
+        rec["one_device_s"] = time.time() - t0
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=300))
+        try:
+            t0 = time.time()
+            train_mod.train(run_cfg("mesh", n))
+            rec["mesh_s"] = time.time() - t0
+        finally:
+            dist.destroy_process_group()
+        step_dir = f"step_{n:010d}"
+        files = sorted(os.listdir(tmp / "one" / step_dir))
+        _, differ, missing = filecmp.cmpfiles(
+            tmp / "one" / step_dir, tmp / "mesh" / step_dir, files,
+            shallow=False)
+        rec["checkpoint_files"] = len(files)
+        rec["checkpoint_bytes"] = sum(
+            (tmp / "one" / step_dir / f).stat().st_size for f in files)
+        rec["files_differ"] = differ + missing
+        extra = sorted(set(os.listdir(tmp / "mesh" / step_dir)) - set(files))
+        # the one-device trainer, one step on from each checkpoint
+        for name in ("one", "mesh"):
+            train_mod.train(run_cfg(name, n + 1))
+        a, b = metrics("one"), metrics("mesh")
+        rec.update(losses=[m["loss"] for m in a],
+                   mesh_losses=[m["loss"] for m in b])
+        print(f"[2k] train() at {TRAIN_CUT_LAYERS} layers, full width, "
+              f"{TRAIN_MESH_E2E_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+              f"one-device {', '.join(f'{x:.6f}' for x in rec['losses'])}, "
+              f"mesh {', '.join(f'{x:.6f}' for x in rec['mesh_losses'])} "
+              f"(the last of each resumed one-device from its checkpoint); "
+              f"step {n} checkpoints: {len(files)} files, "
+              f"{rec['checkpoint_bytes'] / 1e9:.2f} GB, "
+              f"{len(rec['files_differ'])} differ; {rec['one_device_s']:.1f}"
+              f" / {rec['mesh_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rec["files_differ"] or extra:
+        raise RuntimeError(f"the mesh's checkpoint differs from the one "
+                           f"device's in {rec['files_differ'] + extra}")
+    if rec["losses"] != rec["mesh_losses"] or len(rec["losses"]) != n + 1:
+        raise RuntimeError(f"train() under the mesh and resumed from it "
+                           f"differs from one device: {rec['losses']} "
+                           f"against {rec['mesh_losses']}")
+    return rec
 
 
 def main() -> int:
@@ -2806,14 +3003,57 @@ def main() -> int:
           f"flash_attention under autograd on the card raises: "
           f"\"{refusal}\"; {record['train']['seconds']:.1f} s")
 
+    # ---- 2k. the trainer's mesh path on a one-rank NCCL group ---------------
+    from repro_torch.launch.mesh import make_host_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mesh = time.time()
+    _cuda.reset_launches()
+    train_store = (out_dir / "nccl_store_train").resolve()
+    train_store.unlink(missing_ok=True)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the save's group
+    dist.init_process_group("nccl", init_method=f"file://{train_store}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    try:
+        tmesh = make_host_mesh(1, 1, "cuda")
+        print(f"[2k] mesh: {tmesh}")
+        full_rec = record["train"]["full"]
+        mesh_rec = train_mesh_full_width(SEED + 90, tmesh,
+                                         full_rec["steps"][0])
+    finally:
+        dist.destroy_process_group()
+    train_store.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_rec["end_to_end"] = train_mesh_end_to_end(SEED + 93, out_dir,
+                                                   train_store)
+    train_store.unlink(missing_ok=True)
+    train_mesh_launches = _cuda.launch_counts()
+    if any(train_mesh_launches.values()):
+        raise RuntimeError(f"the mesh training path launched kernels: "
+                           f"{train_mesh_launches}")
+    mesh_rec["seconds"] = time.time() - t_mesh
+    record["train"]["mesh"] = mesh_rec
+    print(f"[2k] {card}: mesh path {mesh_rec['ms_per_step']:.1f} ms a "
+          f"step, {mesh_rec['tokens_per_s']:.0f} tokens/s against 2j's "
+          f"{full_rec['ms_per_step']:.1f} ms, "
+          f"{full_rec['tokens_per_s']:.0f} tokens/s (overhead at world "
+          f"size 1: {mesh_rec['ms_per_step'] / full_rec['ms_per_step'] - 1:+.4f}"
+          f"); peak {mesh_rec['peak_bytes'] / 2**30:.2f} GiB against "
+          f"{full_rec['peak_bytes'] / 2**30:.2f}; no kernel launched; "
+          f"{mesh_rec['seconds']:.1f} s")
+
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
         entry["launches_tune_fleet"] = rest_launches[name]
         entry["launches_lm_families"] = fam_launches[name]
         entry["launches_train"] = train_launches[name]
+        entry["launches_train_mesh"] = train_mesh_launches[name]
         entry["launches"] += sv[name] + rest_launches[name] \
-            + fam_launches[name] + train_launches[name]
+            + fam_launches[name] + train_launches[name] \
+            + train_mesh_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

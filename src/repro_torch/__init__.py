@@ -31,9 +31,11 @@ hand-written flash attention kernel::
     logits, cache = prefill_step(params, {"tokens": tokens}, cfg, max_len)
     logits, cache = decode_step(params, cache, next_tokens, cfg)
 
-and trains it on one device (``python -m repro_torch.launch.train``:
+and trains it on one device or over a (data, model) mesh of ranks
+(``python -m repro_torch.launch.train``, under ``torchrun`` for a mesh:
 `models.model.loss_fn`, `optim`, `checkpoint.Checkpointer`, the
-sharding rules of `sharding.partition` and `runtime.elastic`).
+sharding rules of `sharding.partition` with the collectives of
+`sharding.collectives`, and `runtime.elastic`).
 
 Its parameters, caches, batches and trainer are made on the GPU
 (``device="cuda"``) unless the caller asks for the CPU.  Mapper sessions

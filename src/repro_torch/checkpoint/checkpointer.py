@@ -22,6 +22,13 @@ The JAX package's contract and on-disk layout:
 * **Async**: `save_async` copies the tree to host memory (the only
   synchronous part) and writes it on a thread; an error surfaces on
   `wait()`.
+* **Sharded save**: a tree of DTensors, or of each rank's slices with
+  their placements (``placements``), is saved by every rank of the mesh
+  at once.  Each copies only its own slices to the host; its thread
+  sends them, over a gloo group of the mesh's ranks, to the one writer
+  (the mesh's first rank), which assembles each whole leaf and writes the
+  same files, byte for byte, as a one-device save of the same state, and
+  commits.  `wait()` returns on every rank once that commit is made.
 * **GC**: keep the last ``keep`` committed steps, and any step that is a
   multiple of ``keep_every``.
 """
@@ -82,6 +89,47 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _sharding_of(dt):
+    """The `Sharding` of a DTensor's placements."""
+    from repro_torch.sharding.partition import Sharding
+    spec = [None] * dt.ndim
+    for name, pl in zip(dt.device_mesh.mesh_dim_names, dt.placements):
+        if pl.is_shard():
+            d = pl.dim
+            spec[d] = name if spec[d] is None else \
+                (spec[d] if isinstance(spec[d], tuple) else (spec[d],)) \
+                + (name,)
+    return Sharding(dt.device_mesh, tuple(spec))
+
+
+def _host_slices(tree, placements):
+    """[(path, host copy of this rank's slice, its Sharding, the whole
+    leaf's shape)] of a tree of DTensors or of slices with
+    ``placements``, or None when the tree holds neither."""
+    from torch.distributed.tensor import DTensor
+    flat = _flatten_with_path(tree)
+    if placements is None:
+        if not any(isinstance(x, DTensor) for _, x in flat):
+            return None
+        shs = [_sharding_of(x) if isinstance(x, DTensor) else None
+               for _, x in flat]
+    else:
+        shs = [sh for _, sh in _flatten_with_path(placements)]
+        if len(shs) != len(flat):
+            raise ValueError(f"placements have {len(shs)} leaves, the tree "
+                             f"{len(flat)}")
+    out = []
+    for (path, x), sh in zip(flat, shs):
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        if sh is None:
+            raise ValueError(f"{_leaf_name(path)}: a plain leaf in a "
+                             f"sharded tree has no placement")
+        arr = _to_host(x)
+        out.append((path, arr, sh, sh.global_shape(arr.shape)))
+    return out
+
+
 def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A tensor of (a slice of) a leaf read back: ``arr`` is copied into
     memory here, ``dtype`` is the manifest's."""
@@ -101,6 +149,7 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._groups: dict = {}    # mesh ranks -> their gloo group
 
     # ----------------------------------------------------------- listing --
     def _step_dir(self, step: int) -> str:
@@ -119,24 +168,88 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     # -------------------------------------------------------------- save --
-    def save(self, step: int, tree, extra: dict | None = None) -> None:
+    def save(self, step: int, tree, extra: dict | None = None,
+             placements=None) -> None:
         """Synchronous save.  ``tree`` may hold tensors (on any device),
-        numpy arrays and Python scalars."""
+        numpy arrays and Python scalars; or DTensors, or this rank's
+        slices with ``placements`` (a tree of `Sharding`), saved by every
+        rank of their mesh together (see the module)."""
         self.wait()  # serialize with any in-flight async save
-        self._write(step, _map_with_path(lambda _, x: _to_host(x), tree),
-                    extra or {})
+        slices = _host_slices(tree, placements)
+        if slices is not None:
+            self._start_sharded(step, slices, extra)
+            self.wait()
+            return
+        self._write(step, [(p, _to_host(x))
+                           for p, x in _flatten_with_path(tree)], extra or {})
 
-    def save_async(self, step: int, tree, extra: dict | None = None) -> None:
-        """Copy to host now; write in a background thread."""
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   placements=None) -> None:
+        """Copy to host now (a sharded tree: this rank's slices only);
+        write in a background thread."""
         self.wait()
-        host_tree = _map_with_path(lambda _, x: _to_host(x), tree)
+        slices = _host_slices(tree, placements)
+        if slices is not None:
+            self._start_sharded(step, slices, extra)
+            return
+        host = [(p, _to_host(x)) for p, x in _flatten_with_path(tree)]
         extra = dict(extra or {})
 
         def work():
             try:
-                self._write(step, host_tree, extra)
+                self._write(step, host, extra)
             except BaseException as e:  # noqa: BLE001 — surfaced on wait()
                 self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _start_sharded(self, step: int, slices: list, extra) -> None:
+        """The thread of a sharded save: send this rank's slices to the
+        writer, which assembles, writes and commits; then a barrier of the
+        mesh's ranks."""
+        import torch.distributed as dist
+        mesh = slices[0][2].mesh
+        ranks = tuple(sorted(mesh.mesh.flatten().tolist()))
+        if ranks not in self._groups:
+            self._groups[ranks] = dist.new_group(
+                list(ranks), backend="gloo", use_local_synchronization=True)
+        group = self._groups[ranks]
+        writer = int(mesh.mesh.flatten()[0])
+        me = dist.get_rank()
+        coords = {r: tuple(int(i) for i in (mesh.mesh == r).nonzero()[0])
+                  for r in ranks}
+        extra = dict(extra or {})
+
+        def assembled():
+            """Each leaf gathered to the writer, which gets it whole (one
+            leaf in host memory at a time)."""
+            for path, arr, sh, shape in slices:
+                flat = np.ascontiguousarray(arr).reshape(-1)
+                local = torch.from_numpy(flat.view(np.uint8))
+                parts = ([torch.empty_like(local) for _ in ranks]
+                         if me == writer else None)
+                dist.gather(local, parts, dst=writer, group=group)
+                if me != writer:
+                    continue
+                full = np.empty(shape, dtype=arr.dtype)
+                for k, part in enumerate(parts):
+                    r = dist.get_global_rank(group, k)
+                    full[sh.local_index(shape, coords[r])] = \
+                        part.numpy().view(arr.dtype).reshape(arr.shape)
+                yield path, full
+
+        def work():
+            try:
+                if me == writer:
+                    self._write(step, assembled(), extra)
+                else:
+                    for _ in assembled():
+                        pass
+            except BaseException as e:  # noqa: BLE001 — surfaced on wait()
+                self._error = e
+            finally:
+                dist.barrier(group=group)
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
@@ -150,14 +263,16 @@ class Checkpointer:
             err, self._error = self._error, None
             raise err
 
-    def _write(self, step: int, host_tree, extra: dict) -> None:
+    def _write(self, step: int, host_leaves, extra: dict) -> None:
+        """Write ``host_leaves`` ((path, host array) pairs in the tree's
+        order, a list or an iterator), then commit."""
         final = self._step_dir(step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {"step": step, "extra": extra, "leaves": []}
-        for path, arr in _flatten_with_path(host_tree):
+        for path, arr in host_leaves:
             name = _leaf_name(path)
             np.save(os.path.join(tmp, name + ".npy"), arr)
             manifest["leaves"].append(

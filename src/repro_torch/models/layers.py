@@ -9,14 +9,24 @@ softmax (`blockwise_attention`, no S x S scores) and, with
 (`repro_torch.kernels.flash_attention`).  Decode attends one query against
 the KV cache (`decode_attention`).  Shapes keep the JAX package's layout:
 activations (B, S, H, D), weights (d_in, d_out).
+
+Under tensor parallelism over the mesh's ``model`` axis (`TensorParallel`)
+the projections are Megatron's: ``wq`` / ``wk`` / ``wv`` and ``w_gate`` /
+``w_up`` split by columns, ``wo`` and ``w_down`` by rows, whose partial
+products are summed over the axis.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.template import Leaf
+from repro_torch.sharding.collectives import (
+    MeshAxis, gather, grad_sum, reduce_sum,
+)
 
 NEG_INF = -1e30
 
@@ -216,6 +226,87 @@ def cache_write_start(cache_len: int, n: int, max_len: int) -> int:
     return min(max(cache_len, 0), max_len - n)
 
 
+# ------------------------------------------------- tensor parallelism ------
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How one layer's leaves lie over the ``model`` axis: which of them
+    the parameter specs split (a dim the axis does not divide stays
+    whole on every rank)."""
+
+    axis: MeshAxis
+    q_split: bool       # wq, bq (columns) and wo (rows)
+    kv_split: bool      # wk, wv, bk, bv (columns)
+    ff_split: bool      # w_gate, w_up (columns) and w_down (rows)
+
+
+def _kv_heads_of(q0: int, nq: int, G: int, kv0: int, k, v):
+    """k, v (B, S, KV', hd) holding kv heads from ``kv0`` on, cut to the
+    kv heads of q heads [q0, q0 + nq): a block of them with the group
+    size G kept, or one kv head per q head (G 1) where the q heads do not
+    start and end on a group's edge."""
+    if q0 % G == 0 and nq % G == 0:
+        lo = q0 // G - kv0
+        return k[:, :, lo:lo + nq // G], v[:, :, lo:lo + nq // G]
+    idx = torch.arange(q0, q0 + nq, device=k.device) // G - kv0
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attention_tp(p, x, cfg: ModelConfig, positions, positions_thw,
+                  backend, tp: TensorParallel):
+    """Full-sequence GQA attention with wq split over the ``model`` axis.
+
+    Each rank computes the q heads whose columns it holds (all H where
+    the split cuts a head, with wq gathered), their kv heads (from its own
+    wk / wv columns where those are whole heads aligned with its q heads;
+    else from the whole kv projection, gathered, or replicated and its
+    gradient summed over the axis), and multiplies its own rows of wo; the
+    partial products are summed over the axis."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    M, m = tp.axis.size, tp.axis.index
+    G = H // KV
+    dt = x.dtype
+    x = grad_sum(x, tp.axis)
+
+    def whole(names, split):
+        """Leaves' whole columns: gathered if split, else replicated (the
+        gradient of a rank's part summed over the axis)."""
+        return {n: gather(p[n], -1, tp.axis) if split
+                else grad_sum(p[n], tp.axis) for n in names if n in p}
+
+    if H % M == 0:
+        q0, nq = m * H // M, H // M
+        wq = {n: p[n] for n in ("wq", "bq") if n in p}
+    else:
+        q0, nq = 0, H
+        wq = whole(("wq", "bq"), True)
+    kv_names = ("wk", "wv", "bk", "bv")
+    if tp.kv_split and KV % M == 0 and H % M == 0:
+        kv0, nkv = m * KV // M, KV // M
+        wkv = {n: p[n] for n in kv_names if n in p}
+    else:
+        kv0, nkv = 0, KV
+        wkv = whole(kv_names, tp.kv_split)
+    q = x @ wq["wq"].to(dt)
+    k = x @ wkv["wk"].to(dt)
+    v = x @ wkv["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + wq["bq"].to(dt)
+        k = k + wkv["bk"].to(dt)
+        v = v + wkv["bv"].to(dt)
+    q = q.reshape(B, S, nq, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
+    if (kv0, nkv) != (q0 // G, nq // G) or nq % G:
+        k, v = _kv_heads_of(q0, nq, G, kv0, k, v)
+    q, k = _rotate_qk(q, k, cfg, positions, positions_thw)
+    out = _attend(q, k, v, cfg, backend).to(dt).reshape(B, S, nq * hd)
+    if nq == H and M > 1:
+        w = H * hd // M          # the rows of wo this rank holds
+        out = out[..., m * w:(m + 1) * w]
+    return reduce_sum(out @ p["wo"].to(dt), tp.axis), (k, v)
+
+
 # ------------------------------------------------------------ GQA module ---
 def attention_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
     """Template for one (optionally layer-stacked) GQA attention block."""
@@ -237,14 +328,22 @@ def attention_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
 
 def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
                       cache_len: int | None = None, positions_thw=None,
-                      backend: str = "auto"):
+                      backend: str = "auto",
+                      tp: TensorParallel | None = None):
     """GQA attention.  cache=None: full causal (prefill), returns
     (out, (k, v)); cache=(k_cache, v_cache): decode, writes the new rows
     into the caches in place and returns (out, (k_cache, v_cache)).
     With ``cfg.m_rope`` and ``positions_thw`` (B, S, 3) the rotation is
     M-RoPE's.  ``backend`` picks the flash kernel's backend
-    (`flash_attention`).
+    (`flash_attention`).  With ``tp`` and wq split over its axis, ``p``
+    holds this rank's slices (`_attention_tp`; full sequence only).
     """
+    if tp is not None and tp.q_split:
+        if cache is not None:
+            raise NotImplementedError("decode under tensor parallelism is "
+                                      "not ported")
+        return _attention_tp(p, x, cfg, positions, positions_thw, backend,
+                             tp)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
@@ -258,12 +357,7 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
-    if cfg.m_rope and positions_thw is not None:
-        q = apply_mrope(q, positions_thw, cfg.rope_theta)
-        k = apply_mrope(k, positions_thw, cfg.rope_theta)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate_qk(q, k, cfg, positions, positions_thw)
 
     if cache is not None:
         k_cache, v_cache = cache
@@ -273,28 +367,42 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
         out = decode_attention(q, k_cache, v_cache, cache_len + S)
         new_cache = (k_cache, v_cache)
     else:
-        if cfg.attn_impl == "triangle":
-            out = triangle_attention(q, k, v, cfg.attn_block_q,
-                                     cfg.attn_block_k)
-        elif S <= cfg.attn_block_q or S <= 128:
-            out = dense_attention(q, k, v)
-        elif cfg.use_flash_kernel:
-            # (B, S, heads, D) -> (B * heads, S, D); the kernel reads K/V
-            # row bh // G, the rows jnp.repeat(k, G, axis=2) would give
-            def bhd(t):
-                return t.transpose(1, 2).reshape(-1, S, hd)
-            o = flash_attention(bhd(q), bhd(k), bhd(v), causal=True,
-                                backend=backend)
-            out = o.reshape(B, H, S, hd).transpose(1, 2)
-        else:
-            bq = min(cfg.attn_block_q, S)
-            outs = blockwise_attention(q, k, v, cfg.attn_block_q,
-                                       cfg.attn_block_k, causal=True)
-            out = _assemble_blockwise(outs, B, S, H, hd, KV, H // KV,
-                                      S // bq, bq)
+        out = _attend(q, k, v, cfg, backend)
         new_cache = (k, v)
     out = out.to(dt).reshape(B, S, H * hd)
     return out @ p["wo"].to(dt), new_cache
+
+
+def _rotate_qk(q, k, cfg: ModelConfig, positions, positions_thw):
+    if cfg.m_rope and positions_thw is not None:
+        return (apply_mrope(q, positions_thw, cfg.rope_theta),
+                apply_mrope(k, positions_thw, cfg.rope_theta))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _attend(q, k, v, cfg: ModelConfig, backend):
+    """Causal full-sequence attention of q (B, S, H, hd) against k, v
+    (B, S, KV, hd) by the config's route: (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if cfg.attn_impl == "triangle":
+        return triangle_attention(q, k, v, cfg.attn_block_q,
+                                  cfg.attn_block_k)
+    if S <= cfg.attn_block_q or S <= 128:
+        return dense_attention(q, k, v)
+    if cfg.use_flash_kernel:
+        # (B, S, heads, D) -> (B * heads, S, D); the kernel reads K/V
+        # row bh // G, the rows jnp.repeat(k, G, axis=2) would give
+        def bhd(t):
+            return t.transpose(1, 2).reshape(-1, S, hd)
+        o = flash_attention(bhd(q), bhd(k), bhd(v), causal=True,
+                            backend=backend)
+        return o.reshape(B, H, S, hd).transpose(1, 2)
+    bq = min(cfg.attn_block_q, S)
+    outs = blockwise_attention(q, k, v, cfg.attn_block_q, cfg.attn_block_k,
+                               causal=True)
+    return _assemble_blockwise(outs, B, S, H, hd, KV, H // KV, S // bq, bq)
 
 
 # -------------------------------------------------------------- SwiGLU -----
@@ -309,7 +417,12 @@ def mlp_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
     }
 
 
-def mlp_forward(p, x):
+def mlp_forward(p, x, tp: TensorParallel | None = None):
+    """SwiGLU; with ``tp`` and the ff dim split over its axis, ``p`` holds
+    this rank's columns of w_gate / w_up and rows of w_down, and the
+    partial products are summed over the axis."""
+    if tp is not None and tp.ff_split:
+        return reduce_sum(mlp_forward(p, grad_sum(x, tp.axis)), tp.axis)
     dt = x.dtype
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)

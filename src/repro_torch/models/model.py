@@ -8,22 +8,35 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.template import init_params
-from repro_torch.models.transformer import (
-    DecodeCache, _logits, forward, model_template,
+from repro_torch.models.template import axes_tree, init_params
+from repro_torch.models.transformer import (  # noqa: F401 (re-exported)
+    DecodeCache, _logits, forward, model_parallel, model_template,
+    param_shardings,
 )
+from repro_torch.sharding.collectives import (
+    MeshAxis, all_reduce_, grad_sum, reduce_sum,
+)
+from repro_torch.sharding.partition import ShardCtx
 
 
 # ------------------------------------------------------------- params ------
+def model_param_axes(cfg: ModelConfig):
+    """The logical-axes tuple of every parameter, in their tree."""
+    return axes_tree(model_template(cfg))
+
+
 def model_init_params(cfg: ModelConfig, generator: torch.Generator,
-                      device="cuda"):
+                      device="cuda", shardings=None, coordinate=None):
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
-    ``generator`` (a `torch.Generator` on that device)."""
+    ``generator`` (a `torch.Generator` on that device).  With
+    ``shardings`` (a tree of `Sharding`) and a mesh ``coordinate``, each
+    leaf is this rank's slice of the one-device draw (`init_params`)."""
     return init_params(model_template(cfg), generator, cfg.param_dtype,
-                       device)
+                       device, shardings, coordinate)
 
 
 # --------------------------------------------------------------- loss ------
@@ -41,6 +54,22 @@ def _lse_and_label_logit(logits, labels):
     return lse, ll
 
 
+def _lse_and_label_logit_vocab_parallel(logits, labels, axis: MeshAxis):
+    """`_lse_and_label_logit` of logits whose vocab is split over
+    ``axis`` (``logits``: this rank's block of columns): the max and the
+    sum of exponentials over every block, and the label's logit from the
+    rank that holds it."""
+    n = logits.shape[-1]
+    mx = all_reduce_(logits.detach().amax(-1), axis, dist.ReduceOp.MAX)
+    lse = torch.log(reduce_sum(torch.exp(logits - mx[..., None]).sum(-1),
+                               axis)) + mx
+    iota = torch.arange(axis.index * n, (axis.index + 1) * n,
+                        device=logits.device)
+    ll = reduce_sum(torch.where(iota == labels[..., None], logits, 0).sum(-1),
+                    axis)
+    return lse, ll
+
+
 def cross_entropy(logits, labels, mask):
     """Mean next-token loss over the masked positions.
 
@@ -51,22 +80,33 @@ def cross_entropy(logits, labels, mask):
     return nll.sum() / mask.sum().clamp(min=1)
 
 
-def chunked_xent(params, x, labels, cfg: ModelConfig, n_chunks: int = 8):
+def chunked_xent(params, x, labels, cfg: ModelConfig, n_chunks: int = 8,
+                 par=None):
     """Head projection + cross-entropy in sequence chunks.
 
     Each chunk's (B, S / nc, V) float32 logits are computed under
     `torch.utils.checkpoint` and recomputed in backward (the JAX
     package's ``jax.checkpoint`` of its scan body), so one chunk's block
     is live at a time.  ``nc`` is the largest count up to ``n_chunks``
-    that divides S.  Returns the mean over all B * S positions.
+    that divides S.  Returns the mean over all B * S positions.  With
+    ``par`` (a `ModelParallel`) the head is gathered over ``data`` once,
+    and where the vocab is split over ``model`` each rank computes its
+    block of the logits (V / model columns a chunk).
     """
     B, S, _ = x.shape
     nc = n_chunks
     while S % nc:
         nc -= 1
+    vocab_split = par is not None and par.vocab_split
+    if par is not None:
+        params = par.head(params, cfg)
+    if vocab_split:
+        x = grad_sum(x, par.model)
 
     def body(xc, lc):
-        lse, ll = _lse_and_label_logit(_logits(params, cfg, xc), lc)
+        logits = _logits(params, cfg, xc)
+        lse, ll = (_lse_and_label_logit_vocab_parallel(logits, lc, par.model)
+                   if vocab_split else _lse_and_label_logit(logits, lc))
         return (lse - ll).sum()
 
     tot = torch.zeros((), device=x.device)
@@ -76,7 +116,8 @@ def chunked_xent(params, x, labels, cfg: ModelConfig, n_chunks: int = 8):
     return tot / (B * S)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto"):
+def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto",
+            ctx: ShardCtx | None = None):
     """The training loss of ``batch`` ({tokens, labels}; vlm also
     vision_embeds): (loss, {"loss": loss}).
 
@@ -84,20 +125,26 @@ def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto"):
     over the text positions only (the patch prefix is input only); the
     other families through `chunked_xent`; moe adds
     ``MOE_AUX_WEIGHT * balance_loss + Z_LOSS_WEIGHT * z_loss``.
-    ``backend`` is the flash kernel's (`forward`).
+    ``backend`` is the flash kernel's (`forward`).  Under ``ctx``'s mesh
+    (``params``: this rank's slices, ``batch``: its equal share of the
+    rows) the loss is this rank's share of the global batch's: the shares
+    sum over ``data`` to it, and so do their gradients.
     """
+    par = model_parallel(cfg, ctx)
     labels = batch["labels"]
     if cfg.family == "audio":
-        logits, aux = forward(params, cfg, batch, backend=backend)
+        logits, aux = forward(params, cfg, batch, backend=backend, ctx=ctx)
         mask = torch.ones(labels.shape, dtype=torch.bool,
                           device=labels.device)
         loss = cross_entropy(logits, labels, mask)
     else:
         x, aux = forward(params, cfg, batch, return_hidden=True,
-                         backend=backend)
+                         backend=backend, ctx=ctx)
         if cfg.family == "vlm":
             x = x[:, -labels.shape[1]:]
-        loss = chunked_xent(params, x, labels, cfg)
+        loss = chunked_xent(params, x, labels, cfg, par=par)
+    if par is not None:
+        loss = loss / par.data.size
     if cfg.family == "moe":
         loss = loss + MOE_AUX_WEIGHT * aux["balance_loss"] \
             + Z_LOSS_WEIGHT * aux["z_loss"]

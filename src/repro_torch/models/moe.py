@@ -2,8 +2,11 @@
 
 Tokens are split into routing groups; within a group, expert assignment
 is resolved with an argsort + rank-within-segment and tokens are
-scattered into a (G, E, C, d) buffer, as in the JAX package (one shard:
-there is no mesh, so the groups need not align with data shards).
+scattered into a (G, E, C, d) buffer, as in the JAX package.  Under a
+mesh each ``data`` rank routes its own groups: the one-device group count
+over the global batch, split evenly over the ranks (a rank's rows are a
+run of whole groups), and the aux losses are each rank's share of the
+global batch's.
 Top-k gates are renormalised; capacity overflow drops tokens (the
 residual connection carries them).
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import silu
 from repro_torch.models.template import Leaf
+from repro_torch.sharding.collectives import MeshAxis, all_reduce_
 
 
 def moe_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
@@ -89,13 +93,20 @@ def dispatch(expert_idx: torch.Tensor, E: int, C: int):
     return order, tok_s, slot, keep
 
 
-def moe_forward(p, x, cfg: ModelConfig, n_groups: int):
-    """x: (B, S, d) -> ((B, S, d), aux losses)."""
+def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
+                data: MeshAxis | None = None):
+    """x: (B, S, d) -> ((B, S, d), aux losses).  ``data``: the mesh axis
+    that splits the batch (x holds this rank's rows of it)."""
     B, S, d = x.shape
     dt = x.dtype
     E, k = cfg.n_experts, cfg.moe_top_k
     N = B * S
-    G = pick_groups(N, 1, n_groups)
+    D = 1 if data is None else data.size
+    G = pick_groups(N * D, 1, n_groups)
+    if G % D:
+        raise ValueError(f"{G} routing groups of the global batch do not "
+                         f"split over {D} data ranks")
+    G //= D
     Ng = N // G
     C = capacity_per_group(Ng, cfg)
 
@@ -134,16 +145,26 @@ def moe_forward(p, x, cfg: ModelConfig, n_groups: int):
     for j in range(k):
         y = y + back[gi, pos[..., j]]
 
-    aux = router_z_and_balance_loss(logits, expert_idx, E)
+    aux = router_z_and_balance_loss(logits, expert_idx, E, data)
     return y.reshape(B, S, d), aux
 
 
-def router_z_and_balance_loss(logits, expert_idx, E: int):
-    """Standard aux losses: load-balance (switch-style) + router z-loss."""
+def router_z_and_balance_loss(logits, expert_idx, E: int,
+                              data: MeshAxis | None = None):
+    """Standard aux losses: load-balance (switch-style) + router z-loss.
+
+    With ``data`` (each rank holding an equal share of the tokens) the
+    top-1 fractions are the global batch's, and each loss is this rank's
+    share: the shares sum over the axis to the global batch's losses, and
+    so do their gradients."""
     probs = torch.softmax(logits, dim=-1)                # (G, Ng, E)
     me = probs.mean(dim=(0, 1))
     one_hot = F.one_hot(expert_idx[..., 0], E).float()   # top-1 counts
     ce = one_hot.mean(dim=(0, 1))
+    if data is not None:
+        ce = all_reduce_(ce, data) / data.size
     balance = E * (me * ce).sum()
     z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    if data is not None:
+        balance, z = balance / data.size, z / data.size
     return {"balance_loss": balance, "z_loss": z}

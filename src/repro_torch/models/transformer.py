@@ -23,8 +23,20 @@ leaf is unbound once a forward (`unstack_layers`), so a backward pass
 stacks the per-layer gradients once.  With ``cfg.remat`` a forward that
 builds a graph runs each layer body (hybrid: each group body) under
 `torch.utils.checkpoint`, the JAX package's ``jax.checkpoint``; unroll
-changes no value and has no counterpart here, nor do the sharding
-constraints, which are the identity without a mesh.
+changes no value and has no counterpart here.
+
+Under a (data, model) mesh (``ctx``, a `ShardCtx`; `ModelParallel`) each
+rank holds its slices of the parameters, placed by their specs, and its
+rows of the batch.  Where the JAX package's GSPMD places by sharding
+constraints, this forward gathers and reduces explicitly: each layer's
+leaves are gathered over ``data`` just before it runs, inside its remat
+region (so a recompute gathers again and the whole copy lives for one
+layer), and reduce-scattered back in backward (FSDP); the embedding, the
+head and the hybrid shared block are gathered where they are used.  At
+a ``model`` extent above 1 the dense family runs tensor parallel
+(`layers.TensorParallel`, a vocab-parallel embedding); the other
+families raise.  The Megatron-SP activation constraint changes no value
+and is not followed.
 """
 from __future__ import annotations
 
@@ -42,7 +54,13 @@ from repro_torch.models.mamba2 import (
     MambaState, init_mamba_state, mamba_forward, mamba_template,
 )
 from repro_torch.models.moe import moe_forward, moe_template
-from repro_torch.models.template import Leaf
+from repro_torch.models.template import Leaf, axes_tree
+from repro_torch.sharding.collectives import (
+    MeshAxis, gather, mesh_axis, reduce_sum,
+)
+from repro_torch.sharding.partition import (
+    PROD_RULES, ShardCtx, ShardingRules, tree_shardings,
+)
 
 DEFAULT_MOE_GROUPS = 32
 
@@ -133,6 +151,71 @@ def _remat(fn, on: bool):
                              use_reentrant=False)
 
 
+# ================================================================ mesh =====
+@dataclasses.dataclass(frozen=True)
+class ModelParallel:
+    """A forward's view of the mesh: its ``data`` and ``model`` axes, each
+    parameter's spec (`spec_for` of its logical axes on the mesh, a tree
+    in the parameters' structure), and the dense layers' tensor-parallel
+    layout (None at a model extent of 1)."""
+
+    data: MeshAxis
+    model: MeshAxis
+    specs: dict
+    tp: L.TensorParallel | None
+    vocab_split: bool
+
+    def gather_data(self, tree, specs, lead: int = 0):
+        """``tree``'s leaves gathered over ``data`` along each dim their
+        spec splits over it; ``lead`` leading (stacked) dims of the specs
+        are ones the leaves no longer have (a layer's slices)."""
+        if isinstance(tree, dict):
+            return {k: self.gather_data(tree[k], specs[k], lead)
+                    for k in tree}
+        for i, entry in enumerate(specs.spec[lead:]):
+            if entry == self.data.name:
+                tree = gather(tree, i, self.data)
+        return tree
+
+    def head(self, params, cfg: ModelConfig) -> dict:
+        """The output head's leaf ({name: leaf}, as `_logits` reads it),
+        gathered over ``data``."""
+        name = "embed" if cfg.tie_embeddings and cfg.family != "audio" \
+            else "out_head"
+        return {name: self.gather_data(params[name], self.specs[name])}
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules: ShardingRules = PROD_RULES):
+    """Each parameter's `Sharding` on ``mesh`` (a `DeviceMesh`): its
+    logical axes through ``rules``, a dim its mesh axes do not divide
+    kept whole."""
+    template = model_template(cfg)
+    return tree_shardings(mesh, axes_tree(template), template, rules)
+
+
+def model_parallel(cfg: ModelConfig, ctx: ShardCtx | None
+                   ) -> ModelParallel | None:
+    """None without a mesh; tensor parallelism over ``model`` is the dense
+    family's only (NotImplementedError for the others)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    specs = param_shardings(cfg, ctx.mesh, ctx.rules)
+    data, model = mesh_axis(ctx.mesh, "data"), mesh_axis(ctx.mesh, "model")
+    tp, vocab_split = None, False
+    if model.size > 1:
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"tensor parallelism over 'model' ({model.size}) is the "
+                f"dense family's only; {cfg.family} trains with "
+                f"model_mesh 1")
+        attn, mlp = specs["layers"]["attn"], specs["layers"]["mlp"]
+        tp = L.TensorParallel(model, "model" in attn["wq"].spec,
+                              "model" in attn["wk"].spec,
+                              "model" in mlp["w_gate"].spec)
+        vocab_split = "model" in specs["embed"].spec
+    return ModelParallel(data, model, specs, tp, vocab_split)
+
+
 # ============================================================= caches ======
 class DecodeCache(NamedTuple):
     """KV caches + SSM states, layer-stacked; unused leaves are ().
@@ -171,20 +254,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 # ============================================================ blocks =======
 def _dense_block(p, x, cfg, positions, kv_cache, cache_len, positions_thw,
-                 n_groups, backend):
+                 n_groups, backend, par=None):
     """One attn + FFN block.  kv_cache: None (full-seq) or (k, v) buffers.
-    Returns (x, new_kv, aux): aux is the MoE losses, or None."""
+    Returns (x, new_kv, aux): aux is the MoE losses, or None.  ``par``: a
+    `ModelParallel` (``p`` holds this rank's slices, whole over data)."""
+    tp = par.tp if par is not None else None
     h = L.rmsnorm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
     attn_out, new_kv = L.attention_forward(
         p["attn"], h, cfg, positions, kv_cache, cache_len, positions_thw,
-        backend)
+        backend, tp)
     x = x + attn_out
     h = L.rmsnorm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
     aux = None
     if "moe" in p:
-        ff, aux = moe_forward(p["moe"], h, cfg, n_groups)
+        ff, aux = moe_forward(p["moe"], h, cfg, n_groups,
+                              par.data if par is not None else None)
     else:
-        ff = L.mlp_forward(p["mlp"], h)
+        ff = L.mlp_forward(p["mlp"], h, tp)
     return x + ff, new_kv, aux
 
 
@@ -223,13 +309,30 @@ def take_fill(table, ids):
     return torch.where(inside[..., None], rows, torch.nan)
 
 
-def _embed(params, cfg: ModelConfig, batch: dict):
+def take_fill_vocab_parallel(table, ids, n_rows: int, axis: MeshAxis):
+    """`take_fill` of an ``n_rows``-row table whose rows are split over
+    ``axis`` (``table``: this rank's block): each rank gives the rows it
+    holds and zeros, summed over the axis, so every id reads the one row
+    `take_fill` reads (wrapped in [-V, -1], NaN outside [-V, V-1])."""
+    n = table.shape[0]
+    local = normalise_ids(ids, n_rows) - axis.index * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+    rows = reduce_sum(rows, axis)
+    inside = (ids >= -n_rows) & (ids < n_rows)
+    return torch.where(inside[..., None], rows, torch.nan)
+
+
+def _embed(params, cfg: ModelConfig, batch: dict, par=None):
     """(x, positions, positions_thw or None, loss_mask)."""
     dt = cfg.act_dtype
     tokens = batch["tokens"]
     dev = tokens.device
+    table = params["embed"]
+    if par is not None:
+        table = par.gather_data(table, par.specs["embed"])
     if cfg.family == "audio":
-        emb = params["embed"]                 # (K, V, d)
+        emb = table                           # (K, V, d)
         # summed in the parameter dtype, cast once
         x = sum(take_fill(emb[k], tokens[..., k])
                 for k in range(cfg.n_codebooks)).to(dt)
@@ -237,7 +340,11 @@ def _embed(params, cfg: ModelConfig, batch: dict):
         positions = torch.arange(S, device=dev).expand(B, S)
         return x, positions, None, torch.ones((B, S), dtype=torch.bool,
                                               device=dev)
-    x = take_fill(params["embed"], tokens).to(dt)
+    if par is not None and par.vocab_split:
+        x = take_fill_vocab_parallel(table, tokens, cfg.vocab_size,
+                                     par.model).to(dt)
+    else:
+        x = take_fill(table, tokens).to(dt)
     B, S = tokens.shape
     loss_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
     if cfg.family == "vlm" and "vision_embeds" in batch:
@@ -267,7 +374,7 @@ def _logits(params, cfg: ModelConfig, x):
 def forward(params, cfg: ModelConfig, batch: dict,
             cache: DecodeCache | None = None, return_cache: bool = False,
             return_hidden: bool = False, backend: str = "auto",
-            moe_groups: int = DEFAULT_MOE_GROUPS):
+            moe_groups: int = DEFAULT_MOE_GROUPS, ctx: ShardCtx | None = None):
     """Returns (logits, aux) or (logits, aux, cache_out).
 
     cache=None: full-sequence forward; with return_cache=True the
@@ -279,11 +386,16 @@ def forward(params, cfg: ModelConfig, batch: dict,
     over layers (zeros in decode, whose layer scan drops them, and for
     the other families) and the ``loss_mask``.  ``backend`` is the flash
     kernel's (`flash_attention`); ``moe_groups`` the routing groups asked
-    for.
+    for.  ``ctx`` with a mesh: ``params`` hold this rank's slices and
+    ``batch`` its rows (full-sequence only; see the module docstring).
     """
+    par = model_parallel(cfg, ctx)
+    if par is not None and (cache is not None or return_cache):
+        raise NotImplementedError("prefill and decode under a mesh are not "
+                                  "ported; the mesh path trains")
     decode = cache is not None
     collect = return_cache and not decode
-    x, positions, positions_thw, loss_mask = _embed(params, cfg, batch)
+    x, positions, positions_thw, loss_mask = _embed(params, cfg, batch, par)
     B, S, _ = x.shape
     if decode:
         if S != 1:
@@ -300,12 +412,22 @@ def forward(params, cfg: ModelConfig, batch: dict,
     lp = params["layers"]
     cache_out = None
 
+    def layer_leaves(p, specs, lead):
+        """A layer's slices, gathered over data (inside its remat region:
+        a recompute gathers again)."""
+        return p if par is None else par.gather_data(p, specs, lead)
+
     if cfg.family == "ssm":
         states = []
-        ssm_block = _remat(_ssm_block, remat)
+
+        def ssm_layer(pi, x, st):
+            return _ssm_block(layer_leaves(pi, lp_specs, 1), x, cfg, st)
+
+        lp_specs = par.specs["layers"] if par is not None else None
+        ssm_block = _remat(ssm_layer, remat)
         for i, pi in enumerate(unstack_layers(lp)):
             st = _state_at(cache.ssm, i) if decode else None
-            x, nst = ssm_block(pi, x, cfg, st)
+            x, nst = ssm_block(pi, x, st)
             if decode:
                 _write_state(cache.ssm, i, nst)
             elif collect:
@@ -323,6 +445,12 @@ def forward(params, cfg: ModelConfig, batch: dict,
         def group_body(x, pg, g):
             """``per`` SSM layers, then the shared block: (x, the SSM
             layers' new states, the shared block's (k, v))."""
+            if par is not None:
+                pg = par.gather_data(pg, par.specs["layers"], 1)
+                shared = par.gather_data(params["shared"],
+                                         par.specs["shared"])
+            else:
+                shared = params["shared"]
             nsts = []
             for j, pj in enumerate(unstack_layers(pg)):
                 st = _state_at(cache.ssm, (g, j)) if decode else None
@@ -331,7 +459,7 @@ def forward(params, cfg: ModelConfig, batch: dict,
                     _write_state(cache.ssm, (g, j), nst)
                 nsts.append(nst)
             kv = (cache.kv_k[g], cache.kv_v[g]) if decode else None
-            x, nkv, _ = _dense_block(params["shared"], x, dense_cfg,
+            x, nkv, _ = _dense_block(shared, x, dense_cfg,
                                      positions, kv, cache_len, positions_thw,
                                      moe_groups, backend)
             return x, nsts, nkv
@@ -352,12 +480,17 @@ def forward(params, cfg: ModelConfig, batch: dict,
 
     else:  # dense / moe / vlm / audio
         ks, vs = [], []
-        block = _remat(_dense_block, remat)
+
+        def dense_layer(pi, x, kv):
+            return _dense_block(
+                layer_leaves(pi, lp_specs, 1), x, cfg, positions, kv,
+                cache_len, positions_thw, moe_groups, backend, par)
+
+        lp_specs = par.specs["layers"] if par is not None else None
+        block = _remat(dense_layer, remat)
         for i, pi in enumerate(unstack_layers(lp)):
             kv = (cache.kv_k[i], cache.kv_v[i]) if decode else None
-            x, nkv, layer_aux = block(
-                pi, x, cfg, positions, kv, cache_len, positions_thw,
-                moe_groups, backend)
+            x, nkv, layer_aux = block(pi, x, kv)
             if layer_aux is not None and not decode:
                 aux = {k: aux[k] + layer_aux[k] for k in aux}
             if collect:
@@ -370,7 +503,15 @@ def forward(params, cfg: ModelConfig, batch: dict,
 
     x = L.rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     aux["loss_mask"] = loss_mask
-    out = x if return_hidden else _logits(params, cfg, x)
+    if return_hidden:
+        out = x
+    elif par is None:
+        out = _logits(params, cfg, x)
+    elif par.vocab_split:
+        raise NotImplementedError("logits split over the vocab: train "
+                                  "through loss_fn (return_hidden)")
+    else:
+        out = _logits(par.head(params, cfg), cfg, x)
     if decode or collect:
         return out, aux, cache_out
     return out, aux

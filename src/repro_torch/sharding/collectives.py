@@ -1,0 +1,131 @@
+"""Explicit collectives over one axis of a `DeviceMesh`: what the JAX
+package leaves to GSPMD's partitioner, written out for the trainer's
+(data, model) mesh.
+
+  gather(x, dim, axis)      all-gather along ``dim``; backward sums the
+                            gradient over the axis and keeps this rank's
+                            block (reduce-scatter).  FSDP's gather of a
+                            leaf before its layer runs, and the gather of
+                            a tensor-parallel leaf a layer needs whole.
+  reduce_sum(x, axis)       all-reduce sum; backward passes the gradient
+                            on (a row-parallel product's partial sums).
+  grad_sum(x, axis)         the identity; backward all-reduces the
+                            gradient (an input every rank of the axis
+                            uses for its part only).
+  all_reduce_(t, axis, op)  in place, outside autograd
+                            (`mesh_all_reduce_`: over every axis).
+
+Every rank of the axis must make the same calls in the same order; a
+collective that fails raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+# the names of torch 2.13 and later, falling back to the older ones
+_all_gather_base = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter_base = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxis:
+    """One axis of a mesh as this rank sees it: its process group, its
+    extent and this rank's coordinate along it."""
+
+    name: str
+    group: Any
+    size: int
+    index: int
+
+
+def mesh_axis(mesh, name: str) -> MeshAxis:
+    dim = mesh.mesh_dim_names.index(name)
+    return MeshAxis(name, mesh.get_group(name), mesh.size(dim),
+                    mesh.get_local_rank(name))
+
+
+def all_reduce_(t: torch.Tensor, axis: MeshAxis,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(t, op=op, group=axis.group)
+    return t
+
+
+def mesh_all_reduce_(t: torch.Tensor, mesh,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced in place over every rank of ``mesh``, one axis after
+    the other (SUM and MAX: the result is the whole mesh's)."""
+    for name in mesh.mesh_dim_names:
+        all_reduce_(t, mesh_axis(mesh, name), op)
+    return t
+
+
+def _all_gather(x, dim: int, axis: MeshAxis):
+    x = x.contiguous()
+    out = torch.empty((axis.size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _all_gather_base(out, x, group=axis.group)
+    out = out.view((axis.size,) + tuple(x.shape))
+    shape = list(x.shape)
+    shape[dim] *= axis.size
+    # the axis's blocks in rank order along dim
+    return out.movedim(0, dim).reshape(shape)
+
+
+def _reduce_scatter(g, dim: int, axis: MeshAxis):
+    n = axis.size
+    blocks = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
+    blocks = blocks.contiguous()
+    out = torch.empty(blocks.shape[1:], dtype=g.dtype, device=g.device)
+    _reduce_scatter_base(out.view(-1), blocks.view(-1),
+                         op=dist.ReduceOp.SUM, group=axis.group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.axis), None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce_(x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.axis), None
+
+
+def gather(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    return _Gather.apply(x, dim % x.ndim, axis)
+
+
+def reduce_sum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    return _ReduceSum.apply(x, axis)
+
+
+def grad_sum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    return _GradSum.apply(x, axis)

@@ -7,8 +7,10 @@ mesh axis name, or a tuple of names (the dim split over those axes,
 the first one major).  On a `DeviceMesh` a spec becomes one DTensor
 placement per mesh dim (`Sharding.placements`); a dim that its mesh
 axes do not divide degrades to replication.  Without a mesh every
-constraint is the identity: the models take no mesh argument and run on
-a (1, 1) mesh.
+constraint is the identity.  The models do not place activations by
+these specs: under a mesh they gather, reduce and split with the
+explicit collectives of `repro_torch.sharding.collectives`, led by the
+parameters' specs (`models.transformer.ModelParallel`).
 """
 from __future__ import annotations
 
@@ -124,6 +126,29 @@ class Sharding:
                     if e is not None and name in _axes_of(e)]
             out.append(Shard(dims[0]) if dims else Replicate())
         return tuple(out)
+
+    def split_axes(self, dim: int) -> tuple:
+        """The mesh axes that split tensor dim ``dim`` (major first)."""
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        return () if entry is None else _axes_of(entry)
+
+    def global_shape(self, local_shape: tuple) -> tuple:
+        """The whole array's shape, from the shape of one rank's slice."""
+        sizes = mesh_axis_sizes(self.mesh)
+        out = []
+        for i, n in enumerate(local_shape):
+            for a in self.split_axes(i):
+                n *= sizes[a]
+            out.append(n)
+        return tuple(out)
+
+    def counted_here(self, coordinate) -> bool:
+        """Whether the rank at mesh ``coordinate`` holds the copy of its
+        slice that a sum over the mesh counts: the one at 0 along every
+        mesh axis that does not split the array."""
+        used = {a for i in range(len(self.spec)) for a in self.split_axes(i)}
+        return all(c == 0 for name, c in zip(mesh_axis_sizes(self.mesh),
+                                             coordinate) if name not in used)
 
     def local_index(self, shape: tuple, coordinate) -> tuple:
         """The slices of a ``shape`` array held at mesh ``coordinate`` (one

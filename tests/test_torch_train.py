@@ -422,9 +422,9 @@ def test_watchdog_degraded_turns_on_bf16_and_evict_stops(tmp_path,
     codecs = []
     real_step = T.make_train_step
 
-    def make_step(cfg, opt_cfg, run, ccfg):
+    def make_step(cfg, opt_cfg, run, ccfg, mesh=None):
         codecs.append(ccfg.codec)
-        return real_step(cfg, opt_cfg, run, ccfg)
+        return real_step(cfg, opt_cfg, run, ccfg, mesh)
 
     monkeypatch.setattr(T, "Watchdog", Dog)
     monkeypatch.setattr(T, "make_train_step", make_step)
@@ -473,8 +473,8 @@ finally:
 def test_train_refuses_what_it_cannot_run(tmp_path):
     """The default device is the GPU: without one it raises, and never
     falls back to the CPU.  Under a real process group of 2 gloo ranks
-    each rank raises before it builds any state: training over more than
-    one rank is not ported."""
+    and the default (1, 1) mesh each rank raises before it builds any
+    state: the trainer runs no rank outside its mesh."""
     assert T.TrainRunConfig().device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -500,8 +500,8 @@ def test_train_refuses_what_it_cannot_run(tmp_path):
     report = "\n".join(f"-- rank {r} (rc {p.returncode})\n{o}"
                        for r, (p, o) in enumerate(zip(procs, outs)))
     assert all(p.returncode == 0 for p in procs), report
-    assert all("refused: training over 2 ranks is not ported" in o
-               for o in outs), report
+    assert all("refused: 1 of the group's 2 ranks lie outside the (1, 1) "
+               "(data, model) mesh" in o for o in outs), report
     assert not ckpt_dir.exists(), report
 
 
