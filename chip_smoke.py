@@ -153,6 +153,17 @@ Phases (any failure exits non-zero; nothing is caught):
      the same checkpoint files byte for byte, and the one-device trainer
      resumes from the mesh's checkpoint to the same loss; no kernel
      launched;
+  2l. LM serving through the mesh path (`prefill_step` / `decode_step`
+     with a `ShardCtx`) on a one-rank NCCL group and a (1, 1) mesh,
+     after 2k: yi-6b with 2e's parameters, prompts and the 32 tokens 2e
+     decoded, every logit equal to 2e's bit for bit, prefill and decode
+     rates beside 2e's, peak memory, the rank's parameter and cache
+     bytes, one profiled mesh decode step; then llama4-scout, mamba2,
+     zamba2 (2 groups), qwen2-vl and musicgen at published widths cut to
+     2 layers, 8 x 1,024 positions and 4 greedy decode steps, each equal
+     to its one-device steps bit for bit (logits and cache); flash
+     launches counted over the mesh runs only (kimi-k2 is left out: one
+     of its layers costs 2i's time);
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -310,6 +321,28 @@ TRAIN_MESH_TIMED = 2
 TRAIN_MESH_RTOL = 1e-6
 TRAIN_MESH_E2E_BATCH = 2
 TRAIN_MESH_E2E_STEPS = 2
+# Phase 2l: LM serving through the mesh path (prefill_step / decode_step
+# with a ShardCtx) on a one-rank NCCL group and a (1, 1) mesh.  yi-6b as
+# 2e serves it (its parameters, seed, 8 prompts of 2,048 tokens, max_len
+# 2,080, flash on), decoding the 32 tokens 2e fed: every logit equal to
+# 2e's bit for bit (at world size 1 every collective is a copy and no sum
+# is reordered).  Then the other families at 2i's published widths, cut to
+# 2 layer units (zamba2: 2 of its groups, 12 Mamba2 layers and the shared
+# block twice): one prefill of 8 x SERVE_MESH_PROMPT positions (past
+# attn_block_q's 512, so that flash runs) and SERVE_MESH_DECODE greedy
+# steps on the mesh, each equal bit for bit to the one-device steps fed
+# the same tokens.  kimi-k2 is left out: one of its layers alone costs
+# 2i's time.  Each entry: the config, the layers kept, the flash launches
+# of its mesh prefill.
+SERVE_MESH_FAMILIES = (
+    ("llama4-scout-17b-a16e", 2, 2),
+    ("mamba2-2.7b", 2, 0),
+    ("zamba2-2.7b", 12, 2),
+    ("qwen2-vl-7b", 2, 2),
+    ("musicgen-medium", 2, 2),
+)
+SERVE_MESH_PROMPT = 1_024
+SERVE_MESH_DECODE = 4
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
 # non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
@@ -1187,6 +1220,213 @@ def train_mesh_end_to_end(seed: int, out_dir: Path, store: Path) -> dict:
     return rec
 
 
+def _cache_tensors(cache) -> list:
+    """The buffers of a DecodeCache (KV and SSM states)."""
+    return [t for t in (cache.kv_k, cache.kv_v, *cache.ssm)
+            if not isinstance(t, tuple)]
+
+
+def serve_mesh_yi(mesh, ref: dict, out_dir: Path) -> tuple[dict, dict]:
+    """Phase 2l, part 1: yi-6b through prefill_step / decode_step under a
+    ShardCtx of ``mesh`` (2e's parameters, prompts and fed tokens, ``ref``
+    on the host): its record and the launches of its mesh prefill and
+    decode steps; one profiled mesh decode step into ``out_dir``.  Raises
+    unless every logit equals 2e's bit for bit."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.model import (
+        decode_step, model_init_params, param_shardings, prefill_step)
+    from repro_torch.sharding.partition import ShardCtx
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("yi-6b"), use_flash_kernel=True)
+    ctx = ShardCtx(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = model_init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+        param_shardings(cfg, mesh), mesh.get_coordinate())
+    torch.cuda.synchronize()
+    rec = {"init_s": time.time() - t0, "param_bytes": sum(
+        t.numel() * t.element_size() for t in _tensors(params))}
+    batch = {"tokens": ref["tokens"].to(dev)}
+    fed = ref["fed"].to(dev)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, batch, cfg, LM_MAX_LEN, ctx=ctx)
+    torch.cuda.synchronize()
+    rec["first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    dec, step_ms = [], []
+    for i in range(LM_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = decode_step(params, cache, fed[:, i:i + 1], cfg, ctx=ctx)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        dec.append(lg)
+    launches = _cuda.launch_counts()
+    rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _cache_tensors(cache))
+    # where a mesh decode step's time goes (one step at the end of the
+    # cache, as 2e profiles its own)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_step(params, cache._replace(length=LM_MAX_LEN - 1),
+                    fed[:, -1:], cfg, ctx=ctx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    (out_dir / "profile_lm_decode_mesh.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=30))
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    rec["decode_profile"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "nccl_device_ms": sum(e.self_device_time_total for e in dev_events
+                              if "nccl" in e.key.lower()) / 1e3,
+        "copy_device_ms": sum(e.self_device_time_total for e in dev_events
+                              if "memcpy" in e.key.lower()
+                              or "copy" in e.key.lower()) / 1e3}
+    rec["prefill_equal"] = bool(torch.equal(logits.cpu(), ref["logits"]))
+    rec["decode_steps_equal"] = sum(
+        bool(torch.equal(d.cpu(), ref["decoded"][:, i]))
+        for i, d in enumerate(dec))
+    rec["length"] = cache.length
+    del cache, dec
+    prefill_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, spare = prefill_step(params, batch, cfg, LM_MAX_LEN, ctx=ctx)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        del spare
+    rec["prefill_ms"] = min(prefill_ms)
+    rec["prefill_tokens_per_s"] = LM_BATCH * LM_PROMPT / rec["prefill_ms"] \
+        * 1e3
+    rec["decode_ms_per_step"] = sum(step_ms[1:]) / (LM_DECODE - 1)
+    rec["decode_tokens_per_s"] = LM_BATCH / rec["decode_ms_per_step"] * 1e3
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = launches
+    del params, logits
+    torch.cuda.empty_cache()
+    print(f"[2l] yi-6b on the (1, 1) mesh: prefill {LM_BATCH} x "
+          f"{LM_PROMPT}: {rec['prefill_ms']:.1f} ms "
+          f"({rec['prefill_tokens_per_s']:.0f} tokens/s; first "
+          f"{rec['first_prefill_ms']:.1f} ms) against 2e's "
+          f"{ref['prefill_ms']:.1f} ms; decode "
+          f"{rec['decode_ms_per_step']:.2f} ms a step "
+          f"({rec['decode_tokens_per_s']:.0f} tokens/s) against 2e's "
+          f"{ref['decode_ms_per_step']:.2f} ms; peak "
+          f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB; the rank holds "
+          f"{rec['param_bytes'] / 1e9:.2f} GB of parameters and "
+          f"{rec['cache_bytes'] / 1e9:.3f} GB of cache; logits equal to "
+          f"2e's bit for bit: prefill {rec['prefill_equal']}, decode "
+          f"{rec['decode_steps_equal']} of {LM_DECODE} steps; flash "
+          f"launches {launches['flash_attention']}")
+    p = rec["decode_profile"]
+    print(f"[2l] profiled mesh decode step: {p['wall_ms']:.1f} ms wall, "
+          f"{p['device_busy_ms']:.1f} ms device-busy, of which "
+          f"{p['nccl_device_ms']:.1f} ms in NCCL kernels and "
+          f"{p['copy_device_ms']:.1f} ms in copies (the FSDP gathers of "
+          f"every weight; chiprun_out/profile_lm_decode_mesh.txt)")
+    if not rec["prefill_equal"] or rec["decode_steps_equal"] != LM_DECODE \
+            or rec["length"] != LM_MAX_LEN:
+        raise RuntimeError(f"yi-6b through the mesh path differs from 2e: "
+                           f"{rec}")
+    return rec, launches
+
+
+def serve_mesh_family(name: str, n_layers: int, want_flash: int, seed: int,
+                      mesh) -> tuple[dict, dict]:
+    """Phase 2l, part 2: one config at its published width, cut to
+    ``n_layers``, through the mesh path and through the one-device steps
+    fed the same tokens: its record and the launches of its mesh run.
+    Raises unless the two are equal bit for bit."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.model import (
+        decode_step, model_init_params, param_shardings, prefill_step)
+    from repro_torch.sharding.partition import ShardCtx
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(name), use_flash_kernel=True,
+                              n_layers=n_layers)
+    B, S, steps = LM_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_DECODE
+    max_len = S + steps
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.time()
+    params = model_init_params(cfg, g, dev, param_shardings(cfg, mesh),
+                               mesh.get_coordinate())
+    if cfg.family == "audio":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (B, S, cfg.n_codebooks),
+                                         generator=g, device=dev)}
+    else:
+        sv = S // 4 if cfg.family == "vlm" else 0
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - sv),
+                                         generator=g, device=dev)}
+        if sv:
+            batch["vision_embeds"] = (torch.randn(
+                (B, sv, cfg.d_model), generator=g, device=dev)
+                * 0.02).to(torch.bfloat16)
+
+    def run(ctx, feed=None):
+        """prefill + decode steps, greedy unless ``feed`` gives the
+        tokens: (logits (steps + 1, ...), fed tokens, cache, ms)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill_step(params, batch, cfg, max_len, ctx=ctx)
+        out, fed = [lg], []
+        for i in range(steps):
+            tok = lg.argmax(-1)[:, None] if feed is None else feed[i]
+            fed.append(tok)
+            lg, cache = decode_step(params, cache, tok, cfg, ctx=ctx)
+            out.append(lg)
+        torch.cuda.synchronize()
+        return (torch.stack(out), fed, cache,
+                (time.perf_counter() - t0) * 1e3)
+
+    _cuda.reset_launches()
+    got, fed, got_cache, mesh_ms = run(ShardCtx(mesh))
+    launches = _cuda.launch_counts()
+    want, _, want_cache, one_ms = run(None, fed)
+    rec = {"layers": cfg.n_layers, "mesh_ms": mesh_ms, "one_device_ms":
+           one_ms, "logits_equal": bool(torch.equal(got, want)),
+           "cache_equal": all(torch.equal(a, b) for a, b in zip(
+               _cache_tensors(got_cache), _cache_tensors(want_cache))),
+           "finite": bool(got.isfinite().all()), "launches": launches,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del params, got, want, got_cache, want_cache, batch
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t_all
+    print(f"[2l] {name}: {cfg.n_layers} layers at full width, {B} x {S} "
+          f"positions + {steps} decode steps: mesh {mesh_ms:.1f} ms, one "
+          f"device {one_ms:.1f} ms; logits equal {rec['logits_equal']}, "
+          f"cache equal {rec['cache_equal']}; flash launches "
+          f"{launches['flash_attention']}; peak "
+          f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB; {rec['seconds']:.1f} s")
+    if not (rec["logits_equal"] and rec["cache_equal"] and rec["finite"]):
+        raise RuntimeError(f"{name}: the mesh path differs from one device: "
+                           f"{rec}")
+    if launches["flash_attention"] != want_flash or any(
+            v for k, v in launches.items() if k not in LM_KERNELS):
+        raise RuntimeError(f"{name}: mesh launches are off (want "
+                           f"{want_flash} flash launches and nothing "
+                           f"else): {launches}")
+    return rec, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1752,6 +1992,11 @@ def main() -> int:
     if drel > LM_DECODE_TOL:
         raise RuntimeError(f"decode differs from teacher forcing: relative "
                            f"L2 {drel}")
+    # what phase 2l's mesh path must reproduce bit for bit
+    serve_ref = {"tokens": tokens.cpu(), "fed": torch.cat(fed, 1).cpu(),
+                 "logits": logits.cpu(), "decoded": decoded.cpu(),
+                 "prefill_ms": lm["prefill_ms"],
+                 "decode_ms_per_step": lm["decode_ms_per_step"]}
     del params, cache, logits, plain_logits, blockwise_logits, again
     del hidden, forced, decoded
     del dec_logits, lg
@@ -3044,6 +3289,47 @@ def main() -> int:
           f"{full_rec['peak_bytes'] / 2**30:.2f}; no kernel launched; "
           f"{mesh_rec['seconds']:.1f} s")
 
+    # ---- 2l. LM serving through the mesh path ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_serve = time.time()
+    serve_store = (out_dir / "nccl_store_serve").resolve()
+    serve_store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{serve_store}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    serve_mesh_launches = {k: 0 for k in REPLACES}
+    try:
+        smesh = make_host_mesh(1, 1, "cuda")
+        yi_rec, fl = serve_mesh_yi(smesh, serve_ref, out_dir)
+        record["serve_mesh"] = {"yi-6b": yi_rec}
+        for k, v in fl.items():
+            serve_mesh_launches[k] += v
+        for i, (name, n_layers, n_flash) in enumerate(SERVE_MESH_FAMILIES):
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec, fl = serve_mesh_family(name, n_layers, n_flash,
+                                        SEED + 100 + i, smesh)
+            record["serve_mesh"][name] = rec
+            for k, v in fl.items():
+                serve_mesh_launches[k] += v
+    finally:
+        dist.destroy_process_group()
+    serve_store.unlink(missing_ok=True)
+    del serve_ref
+    serve_flash = get_config("yi-6b").n_layers + sum(
+        f for _, _, f in SERVE_MESH_FAMILIES)
+    record["serve_mesh"]["seconds"] = time.time() - t_serve
+    print(f"[2l] launches over the mesh path's prefills and decodes: "
+          f"{serve_mesh_launches} (kimi-k2 left out: one of its layers "
+          f"costs 2i's time); {record['serve_mesh']['seconds']:.1f} s")
+    if serve_mesh_launches["flash_attention"] != serve_flash or any(
+            v for k, v in serve_mesh_launches.items()
+            if k not in LM_KERNELS):
+        raise RuntimeError(f"the mesh serving path's launches are off (want "
+                           f"{serve_flash} flash launches and nothing "
+                           f"else): {serve_mesh_launches}")
+
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
@@ -3051,9 +3337,10 @@ def main() -> int:
         entry["launches_lm_families"] = fam_launches[name]
         entry["launches_train"] = train_launches[name]
         entry["launches_train_mesh"] = train_mesh_launches[name]
+        entry["launches_serve_mesh"] = serve_mesh_launches[name]
         entry["launches"] += sv[name] + rest_launches[name] \
             + fam_launches[name] + train_launches[name] \
-            + train_mesh_launches[name]
+            + train_mesh_launches[name] + serve_mesh_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")

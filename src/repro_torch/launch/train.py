@@ -55,7 +55,7 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, batch_for_step
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import (
-    loss_fn, model_init_params, param_shardings,
+    local_rows, loss_fn, model_init_params, param_shardings,
 )
 from repro_torch.models.template import init_params
 from repro_torch.models.transformer import model_template
@@ -65,7 +65,7 @@ from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.runtime.preemption import PreemptionGuard
 from repro_torch.runtime.watchdog import DEGRADED, EVICT, HEALTHY, Watchdog
 from repro_torch.sharding.collectives import (
-    MeshAxis, all_reduce_, mesh_all_reduce_, mesh_axis,
+    all_reduce_, mesh_all_reduce_, mesh_axis,
 )
 from repro_torch.sharding.partition import PROD_RULES, ShardCtx, Sharding
 from repro_torch.tree import tree_leaves, tree_map
@@ -107,24 +107,6 @@ def _unflatten(like, values):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], values) for k in sorted(like)}
     return next(values)
-
-
-def local_rows(batch: dict, grad_accum: int, data: MeshAxis) -> dict:
-    """This ``data`` rank's rows of the global batch: of each of the
-    ``grad_accum`` micro-batches (runs of rows along dim 0), its
-    coordinate's equal share, so that its k-th local micro-batch is its
-    share of the global k-th."""
-    def cut(v):
-        B = v.shape[0]
-        if B % (grad_accum * data.size):
-            raise ValueError(f"a global batch of {B} does not split into "
-                             f"{grad_accum} micro-batches over {data.size} "
-                             f"data ranks")
-        b = B // (grad_accum * data.size)
-        rest = tuple(v.shape[1:])
-        return v.reshape((grad_accum, data.size, b) + rest)[:, data.index] \
-            .reshape((grad_accum * b,) + rest)
-    return {k: cut(v) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,

@@ -13,7 +13,9 @@ activations (B, S, H, D), weights (d_in, d_out).
 Under tensor parallelism over the mesh's ``model`` axis (`TensorParallel`)
 the projections are Megatron's: ``wq`` / ``wk`` / ``wv`` and ``w_gate`` /
 ``w_up`` split by columns, ``wo`` and ``w_down`` by rows, whose partial
-products are summed over the axis.
+products are summed over the axis.  A decode there attends this rank's
+slice of the cache: its kv heads, or a run of positions of all of them
+whose partial softmax statistics are combined over the axis.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.template import Leaf
 from repro_torch.sharding.collectives import (
-    MeshAxis, gather, grad_sum, reduce_sum,
+    MeshAxis, all_gather, combine_softmax, gather, grad_sum, reduce_sum,
 )
 
 NEG_INF = -1e30
@@ -231,12 +233,15 @@ def cache_write_start(cache_len: int, n: int, max_len: int) -> int:
 class TensorParallel:
     """How one layer's leaves lie over the ``model`` axis: which of them
     the parameter specs split (a dim the axis does not divide stays
-    whole on every rank)."""
+    whole on every rank), and whether a decode cache splits its sequence
+    over the axis (``seq_split``: the kv heads do not divide by it) or
+    its kv heads (`repro_torch.sharding.partition.cache_specs`)."""
 
     axis: MeshAxis
     q_split: bool       # wq, bq (columns) and wo (rows)
     kv_split: bool      # wk, wv, bk, bv (columns)
     ff_split: bool      # w_gate, w_up (columns) and w_down (rows)
+    seq_split: bool     # the decode cache splits its positions, not kv heads
 
 
 def _kv_heads_of(q0: int, nq: int, G: int, kv0: int, k, v):
@@ -252,15 +257,22 @@ def _kv_heads_of(q0: int, nq: int, G: int, kv0: int, k, v):
 
 
 def _attention_tp(p, x, cfg: ModelConfig, positions, positions_thw,
-                  backend, tp: TensorParallel):
-    """Full-sequence GQA attention with wq split over the ``model`` axis.
+                  backend, tp: TensorParallel, cache=None,
+                  cache_len: int | None = None):
+    """GQA attention with wq split over the ``model`` axis.
 
     Each rank computes the q heads whose columns it holds (all H where
     the split cuts a head, with wq gathered), their kv heads (from its own
     wk / wv columns where those are whole heads aligned with its q heads;
     else from the whole kv projection, gathered, or replicated and its
     gradient summed over the axis), and multiplies its own rows of wo; the
-    partial products are summed over the axis."""
+    partial products are summed over the axis.
+
+    Full sequence (``cache`` None) returns the kv heads it computed,
+    before they are cut to its q heads': its own, or all of them (from
+    which a prefill keeps its run of positions, ``tp.seq_split``).  A
+    decode writes the new rows into ``cache``, this rank's slice
+    (`_decode_tp`)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     M, m = tp.axis.size, tp.axis.index
@@ -297,14 +309,64 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, positions_thw,
     q = q.reshape(B, S, nq, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
-    if (kv0, nkv) != (q0 // G, nq // G) or nq % G:
-        k, v = _kv_heads_of(q0, nq, G, kv0, k, v)
     q, k = _rotate_qk(q, k, cfg, positions, positions_thw)
-    out = _attend(q, k, v, cfg, backend).to(dt).reshape(B, S, nq * hd)
+    if cache is not None:
+        out = _decode_tp(q, k, v, cache, cache_len, tp, q0, H)
+        new = cache
+    else:
+        new = (k, v)
+        if (kv0, nkv) != (q0 // G, nq // G) or nq % G:
+            k, v = _kv_heads_of(q0, nq, G, kv0, k, v)
+        out = _attend(q, k, v, cfg, backend)
+    out = out.to(dt).reshape(B, S, nq * hd)
     if nq == H and M > 1:
         w = H * hd // M          # the rows of wo this rank holds
         out = out[..., m * w:(m + 1) * w]
-    return reduce_sum(out @ p["wo"].to(dt), tp.axis), (k, v)
+    return reduce_sum(out @ p["wo"].to(dt), tp.axis), new
+
+
+def _decode_tp(q, k, v, cache, cache_len: int, tp: TensorParallel,
+               q0: int, H: int):
+    """A decode's attention under tensor parallelism: q (B, S, nq, hd)
+    this rank's q heads from ``q0`` (or all H); k, v (B, S, nkv, hd) the
+    new rows of its kv heads (all KV where the cache splits its
+    sequence); ``cache`` this rank's (k, v) slice, written in place.
+
+    kv heads split: its q heads over its kv heads' cache, as
+    `decode_attention`.  Sequence split (each rank holds Smax / M
+    positions of every kv head): the rank whose run holds the write
+    position (`cache_write_start`'s clamp against the global Smax) writes
+    the new rows; every rank attends all H q heads (gathered over the
+    axis) over its own positions, masked past the fill, and
+    `combine_softmax` joins the partial statistics; it keeps its own
+    heads' output."""
+    k_cache, v_cache = cache
+    B, S, nq, hd = q.shape
+    if not tp.seq_split:
+        at = cache_write_start(cache_len, S, k_cache.shape[1])
+        k_cache[:, at:at + S] = k.to(k_cache.dtype)
+        v_cache[:, at:at + S] = v.to(v_cache.dtype)
+        return decode_attention(q, k_cache, v_cache, cache_len + S)
+    axis = tp.axis
+    n = k_cache.shape[1]
+    lo = axis.index * n
+    at = cache_write_start(cache_len, S, n * axis.size)
+    a, b = max(at, lo), min(at + S, lo + n)
+    if a < b:
+        k_cache[:, a - lo:b - lo] = k[:, a - at:b - at].to(k_cache.dtype)
+        v_cache[:, a - lo:b - lo] = v[:, a - at:b - at].to(v_cache.dtype)
+    if nq != H:
+        q = all_gather(q, 2, axis)
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * (hd ** -0.5)
+    pos = lo + torch.arange(n, device=q.device)
+    s = torch.where(pos < cache_len + S, s, NEG_INF)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - mx)
+    acc = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
+    out = combine_softmax(mx, p.sum(-1, keepdim=True), acc, axis)
+    return out.reshape(B, 1, H, hd)[:, :, q0:q0 + nq]
 
 
 # ------------------------------------------------------------ GQA module ---
@@ -336,14 +398,11 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
     With ``cfg.m_rope`` and ``positions_thw`` (B, S, 3) the rotation is
     M-RoPE's.  ``backend`` picks the flash kernel's backend
     (`flash_attention`).  With ``tp`` and wq split over its axis, ``p``
-    holds this rank's slices (`_attention_tp`; full sequence only).
+    holds this rank's slices and ``cache`` its slice (`_attention_tp`).
     """
     if tp is not None and tp.q_split:
-        if cache is not None:
-            raise NotImplementedError("decode under tensor parallelism is "
-                                      "not ported")
         return _attention_tp(p, x, cfg, positions, positions_thw, backend,
-                             tp)
+                             tp, cache, cache_len)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
@@ -359,7 +418,12 @@ def attention_forward(p, x, cfg: ModelConfig, positions, cache=None,
     v = v.reshape(B, S, KV, hd)
     q, k = _rotate_qk(q, k, cfg, positions, positions_thw)
 
-    if cache is not None:
+    if cache is not None and tp is not None:
+        # wq whole on every rank (the axis cuts no column block of it):
+        # all H heads here, over this rank's slice of the cache
+        out = _decode_tp(q, k, v, cache, cache_len, tp, 0, H)
+        new_cache = cache
+    elif cache is not None:
         k_cache, v_cache = cache
         at = cache_write_start(cache_len, S, k_cache.shape[1])
         k_cache[:, at:at + S] = k.to(k_cache.dtype)

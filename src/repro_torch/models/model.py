@@ -14,13 +14,13 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.template import axes_tree, init_params
 from repro_torch.models.transformer import (  # noqa: F401 (re-exported)
-    DecodeCache, _logits, forward, model_parallel, model_template,
-    param_shardings,
+    DecodeCache, _logits, forward, head_logits, init_cache, model_parallel,
+    model_template, param_shardings,
 )
 from repro_torch.sharding.collectives import (
-    MeshAxis, all_reduce_, grad_sum, reduce_sum,
+    MeshAxis, all_reduce_, grad_sum, mesh_axis, reduce_sum,
 )
-from repro_torch.sharding.partition import ShardCtx
+from repro_torch.sharding.partition import ShardCtx, batch_lead
 
 
 # ------------------------------------------------------------- params ------
@@ -151,9 +151,41 @@ def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto",
     return loss, {"loss": loss}
 
 
+# ----------------------------------------------------- a rank's rows -------
+def local_rows(batch: dict, grad_accum: int, data: MeshAxis) -> dict:
+    """This ``data`` rank's rows of the global batch: of each of the
+    ``grad_accum`` micro-batches (runs of rows along dim 0), its
+    coordinate's equal share, so that its k-th local micro-batch is its
+    share of the global k-th."""
+    def cut(v):
+        B = v.shape[0]
+        if B % (grad_accum * data.size):
+            raise ValueError(f"a global batch of {B} does not split into "
+                             f"{grad_accum} micro-batches over {data.size} "
+                             f"data ranks")
+        b = B // (grad_accum * data.size)
+        rest = tuple(v.shape[1:])
+        return v.reshape((grad_accum, data.size, b) + rest)[:, data.index] \
+            .reshape((grad_accum * b,) + rest)
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def _rows(batch: dict, ctx: ShardCtx | None) -> tuple[dict, bool]:
+    """This ``data`` rank's rows of a global batch, and whether they split
+    (`batch_lead`: where the data extent does not divide the rows, every
+    rank takes all of them)."""
+    if ctx is None or ctx.mesh is None:
+        return batch, True
+    if batch_lead(ctx.mesh, ctx.rules,
+                  next(iter(batch.values())).shape[0]) is None:
+        return batch, False
+    return local_rows(batch, 1, mesh_axis(ctx.mesh, "data")), True
+
+
 # ------------------------------------------------------------ serving ------
 def prefill_step(params, batch, cfg: ModelConfig, max_len: int,
-                 cache_dtype=torch.bfloat16, backend: str = "auto"):
+                 cache_dtype=torch.bfloat16, backend: str = "auto",
+                 ctx: ShardCtx | None = None):
     """Full-sequence prefill that fills a fresh KV / SSM cache.
 
     Collects the per-layer KV and pads it into ``max_len`` decode buffers
@@ -163,35 +195,60 @@ def prefill_step(params, batch, cfg: ModelConfig, max_len: int,
     (B, V), audio (B, K, V).  Only the last position's logits are
     computed (the JAX package computes all S and keeps the last: the same
     value, without a (B, S, V) float32 tensor).
+
+    Under ``ctx``'s mesh ``params`` hold this rank's slices
+    (`param_shardings`) and ``batch`` is the global batch, of which the
+    rank serves its rows (all of them where they do not split over
+    ``data``): the logits are those rows' (whole over the vocab), and the
+    cache is the rank's slice of theirs (`cache_specs`; where it splits
+    the sequence, the prompt positions that fall in the rank's run).
     """
-    x, _, c = forward(params, cfg, batch, return_cache=True,
-                      return_hidden=True, backend=backend)
+    rows, split = _rows(batch, ctx)
+    par = model_parallel(cfg, ctx, split)
+    # this rank's slice of the cache (which may refuse the mesh) first
+    place = None if par is None else init_cache(
+        cfg, next(iter(batch.values())).shape[0], max_len, cache_dtype,
+        "meta", ctx)
+    x, _, c = forward(params, cfg, rows, return_cache=True,
+                      return_hidden=True, backend=backend, ctx=ctx,
+                      rows_split=split)
     if c.length > max_len:
         raise ValueError(f"a prompt of {c.length} tokens does not fit a "
                          f"cache of {max_len}")
 
-    def pad_kv(kv):
+    def pad_kv(kv, like):
         if isinstance(kv, tuple):          # () : no KV (ssm)
             return ()
         Ls, B, S, KV, hd = kv.shape
-        buf = torch.zeros((Ls, B, max_len, KV, hd), dtype=cache_dtype,
-                          device=kv.device)
-        buf[:, :, :S] = kv
+        shape = (Ls, B, max_len, KV, hd) if like is None else like.shape
+        buf = torch.zeros(shape, dtype=cache_dtype, device=kv.device)
+        n = shape[2]
+        # where the sequence splits over model, this rank's run of it
+        lo = 0 if n == max_len else par.model.index * n
+        hi = min(lo + n, S)
+        if hi > lo:
+            buf[:, :, :hi - lo] = kv[:, :, lo:hi]
         return buf
 
-    cache = DecodeCache(pad_kv(c.kv_k), pad_kv(c.kv_v), c.ssm, c.length)
-    return _logits(params, cfg, x[:, -1:])[:, -1], cache
+    like = (None, None) if place is None else (place.kv_k, place.kv_v)
+    cache = DecodeCache(pad_kv(c.kv_k, like[0]), pad_kv(c.kv_v, like[1]),
+                        c.ssm, c.length)
+    return head_logits(params, cfg, x[:, -1:], par)[:, -1], cache
 
 
 def decode_step(params, cache: DecodeCache, tokens, cfg: ModelConfig,
-                backend: str = "auto"):
+                backend: str = "auto", ctx: ShardCtx | None = None):
     """One-token decode against an existing cache.
 
     tokens: (B, 1), audio (B, 1, K).  Returns (logits, new_cache); the new
     cache shares the old one's buffers, which this call updates in place.
+    Under ``ctx``'s mesh, as `prefill_step`: ``tokens`` are the global
+    batch's, ``cache`` the rank's slice, the logits its rows'.
     """
-    logits, _, new_cache = forward(params, cfg, {"tokens": tokens},
-                                   cache=cache, backend=backend)
+    rows, split = _rows({"tokens": tokens}, ctx)
+    logits, _, new_cache = forward(params, cfg, rows, cache=cache,
+                                   backend=backend, ctx=ctx,
+                                   rows_split=split)
     return logits[:, -1], new_cache
 
 

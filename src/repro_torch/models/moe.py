@@ -3,10 +3,12 @@
 Tokens are split into routing groups; within a group, expert assignment
 is resolved with an argsort + rank-within-segment and tokens are
 scattered into a (G, E, C, d) buffer, as in the JAX package.  Under a
-mesh each ``data`` rank routes its own groups: the one-device group count
-over the global batch, split evenly over the ranks (a rank's rows are a
-run of whole groups), and the aux losses are each rank's share of the
-global batch's.
+mesh the group count is the JAX package's: ``pick_groups`` of the global
+token count over the mesh's data x model shards.  Where the rows split
+over ``data`` that count is a multiple of the data extent (a data rank's
+rows are a run of whole groups, which it routes), and the aux losses are
+each rank's share of the global batch's; where every rank holds every
+row, each routes all the groups.
 Top-k gates are renormalised; capacity overflow drops tokens (the
 residual connection carries them).
 
@@ -53,7 +55,8 @@ def capacity_per_group(tokens_per_group: int, cfg: ModelConfig) -> int:
 
 def pick_groups(n_tokens: int, n_shards: int, requested: int) -> int:
     """Routing-group count: a multiple of the shard count that divides the
-    token count (this package routes on one shard: ``n_shards`` 1)."""
+    token count where one does, else the largest divisor up to the
+    request."""
     G = max(requested, n_shards)
     G = min(G, n_tokens)
     for g in range(G, 0, -1):
@@ -94,17 +97,19 @@ def dispatch(expert_idx: torch.Tensor, E: int, C: int):
 
 
 def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
-                data: MeshAxis | None = None):
+                data: MeshAxis | None = None, n_shards: int = 1):
     """x: (B, S, d) -> ((B, S, d), aux losses).  ``data``: the mesh axis
-    that splits the batch (x holds this rank's rows of it)."""
+    that splits the batch (x holds this rank's rows of it), None where x
+    holds every row; ``n_shards``: the mesh's extent (data x model), which
+    the group count is a multiple of where it can be."""
     B, S, d = x.shape
     dt = x.dtype
     E, k = cfg.n_experts, cfg.moe_top_k
     N = B * S
     D = 1 if data is None else data.size
-    G = pick_groups(N * D, 1, n_groups)
+    G = pick_groups(N * D, n_shards, n_groups)
     if G % D:
-        raise ValueError(f"{G} routing groups of the global batch do not "
+        raise ValueError(f"{G} routing groups of {N * D} tokens do not "
                          f"split over {D} data ranks")
     G //= D
     Ng = N // G

@@ -27,7 +27,8 @@ changes no value and has no counterpart here.
 
 Under a (data, model) mesh (``ctx``, a `ShardCtx`; `ModelParallel`) each
 rank holds its slices of the parameters, placed by their specs, and its
-rows of the batch.  Where the JAX package's GSPMD places by sharding
+rows of the batch (or every row, where they do not split over ``data``:
+``rows_split`` False).  Where the JAX package's GSPMD places by sharding
 constraints, this forward gathers and reduces explicitly: each layer's
 leaves are gathered over ``data`` just before it runs, inside its remat
 region (so a recompute gathers again and the whole copy lives for one
@@ -35,8 +36,14 @@ layer), and reduce-scattered back in backward (FSDP); the embedding, the
 head and the hybrid shared block are gathered where they are used.  At
 a ``model`` extent above 1 the dense family runs tensor parallel
 (`layers.TensorParallel`, a vocab-parallel embedding); the other
-families raise.  The Megatron-SP activation constraint changes no value
-and is not followed.
+families raise (ROADMAP 4.8).  The Megatron-SP activation constraint
+changes no value and is not followed.
+
+Prefill and decode run under the mesh too: a decode cache holds this
+rank's slice, placed by `repro_torch.sharding.partition.cache_specs`
+(rows over ``data``; kv heads over ``model``, or its positions where the
+kv heads do not divide), and the logits come back whole over the vocab
+(`head_logits`) for each of this rank's rows.
 """
 from __future__ import annotations
 
@@ -56,10 +63,11 @@ from repro_torch.models.mamba2 import (
 from repro_torch.models.moe import moe_forward, moe_template
 from repro_torch.models.template import Leaf, axes_tree
 from repro_torch.sharding.collectives import (
-    MeshAxis, gather, mesh_axis, reduce_sum,
+    MeshAxis, all_gather, gather, mesh_axis, reduce_sum,
 )
 from repro_torch.sharding.partition import (
-    PROD_RULES, ShardCtx, ShardingRules, tree_shardings,
+    PROD_RULES, ShardCtx, Sharding, ShardingRules, cache_specs,
+    tree_shardings,
 )
 
 DEFAULT_MOE_GROUPS = 32
@@ -156,14 +164,22 @@ def _remat(fn, on: bool):
 class ModelParallel:
     """A forward's view of the mesh: its ``data`` and ``model`` axes, each
     parameter's spec (`spec_for` of its logical axes on the mesh, a tree
-    in the parameters' structure), and the dense layers' tensor-parallel
-    layout (None at a model extent of 1)."""
+    in the parameters' structure), the dense layers' tensor-parallel
+    layout (None at a model extent of 1), and ``rows``: the data axis
+    where the batch's rows split over it, None where each rank holds all
+    of them."""
 
     data: MeshAxis
     model: MeshAxis
     specs: dict
     tp: L.TensorParallel | None
     vocab_split: bool
+    rows: MeshAxis | None
+
+    @property
+    def n_shards(self) -> int:
+        """The mesh's extent, over which MoE spreads its routing groups."""
+        return self.data.size * self.model.size
 
     def gather_data(self, tree, specs, lead: int = 0):
         """``tree``'s leaves gathered over ``data`` along each dim their
@@ -193,10 +209,11 @@ def param_shardings(cfg: ModelConfig, mesh, rules: ShardingRules = PROD_RULES):
     return tree_shardings(mesh, axes_tree(template), template, rules)
 
 
-def model_parallel(cfg: ModelConfig, ctx: ShardCtx | None
-                   ) -> ModelParallel | None:
+def model_parallel(cfg: ModelConfig, ctx: ShardCtx | None,
+                   rows_split: bool = True) -> ModelParallel | None:
     """None without a mesh; tensor parallelism over ``model`` is the dense
-    family's only (NotImplementedError for the others)."""
+    family's only (NotImplementedError for the others, ROADMAP 4.8).
+    ``rows_split``: whether the batch's rows split over ``data``."""
     if ctx is None or ctx.mesh is None:
         return None
     specs = param_shardings(cfg, ctx.mesh, ctx.rules)
@@ -206,14 +223,16 @@ def model_parallel(cfg: ModelConfig, ctx: ShardCtx | None
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"tensor parallelism over 'model' ({model.size}) is the "
-                f"dense family's only; {cfg.family} trains with "
-                f"model_mesh 1")
+                f"dense family's only (ROADMAP 4.8); {cfg.family} trains "
+                f"and serves at a model extent of 1")
         attn, mlp = specs["layers"]["attn"], specs["layers"]["mlp"]
         tp = L.TensorParallel(model, "model" in attn["wq"].spec,
                               "model" in attn["wk"].spec,
-                              "model" in mlp["w_gate"].spec)
+                              "model" in mlp["w_gate"].spec,
+                              cfg.n_kv_heads % model.size != 0)
         vocab_split = "model" in specs["embed"].spec
-    return ModelParallel(data, model, specs, tp, vocab_split)
+    return ModelParallel(data, model, specs, tp, vocab_split,
+                         data if rows_split else None)
 
 
 # ============================================================= caches ======
@@ -232,10 +251,29 @@ class DecodeCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> DecodeCache:
+               dtype=torch.bfloat16, device="cuda",
+               ctx: ShardCtx | None = None) -> DecodeCache:
     """A zero cache.  Every layer's buffers are allocated (a decode writes
     them in place), where the JAX package broadcasts one zero state; the
-    SSM states are float32 whatever ``dtype`` (the KV's) is."""
+    SSM states are float32 whatever ``dtype`` (the KV's) is.  Under
+    ``ctx``'s mesh, only this rank's slice of a ``batch``-row cache
+    (`cache_specs`)."""
+    if ctx is not None and ctx.mesh is not None:
+        whole = init_cache(cfg, batch, max_len, dtype, "meta")
+        coord = ctx.mesh.get_coordinate()
+
+        def local(t, spec):
+            if isinstance(t, tuple):
+                return ()
+            shape = Sharding(ctx.mesh, spec).local_shape(tuple(t.shape),
+                                                         coord)
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+
+        specs = cache_specs(whole, ctx.mesh, ctx.rules)
+        ssm = whole.ssm if not len(whole.ssm) else MambaState(
+            *map(local, whole.ssm, specs.ssm))
+        return DecodeCache(local(whole.kv_k, specs.kv_k),
+                           local(whole.kv_v, specs.kv_v), ssm, 0)
     kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     if cfg.family == "ssm":
         st = init_mamba_state(cfg, batch, lead=(cfg.n_layers,),
@@ -267,8 +305,9 @@ def _dense_block(p, x, cfg, positions, kv_cache, cache_len, positions_thw,
     h = L.rmsnorm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
     aux = None
     if "moe" in p:
-        ff, aux = moe_forward(p["moe"], h, cfg, n_groups,
-                              par.data if par is not None else None)
+        rows, shards = (None, 1) if par is None else (par.rows,
+                                                       par.n_shards)
+        ff, aux = moe_forward(p["moe"], h, cfg, n_groups, rows, shards)
     else:
         ff = L.mlp_forward(p["mlp"], h, tp)
     return x + ff, new_kv, aux
@@ -370,11 +409,30 @@ def _logits(params, cfg: ModelConfig, x):
     return xf @ params["out_head"].float()
 
 
+def head_logits(params, cfg: ModelConfig, x, par: ModelParallel | None):
+    """`_logits` of the final hidden states ``x`` under ``par``'s mesh: the
+    head gathered over ``data``; where its vocab splits over ``model``,
+    each rank's block of the logits, gathered whole over the axis (a
+    server samples from every rank's rows).  Serving only: the gather has
+    no backward (training takes the loss through `loss_fn`)."""
+    if par is None:
+        return _logits(params, cfg, x)
+    head = par.head(params, cfg)
+    (name, leaf), = head.items()
+    out = _logits(head, cfg, x)
+    vocab_dim = 0 if name == "embed" else leaf.ndim - 1
+    if par.model.size > 1 and \
+            par.model.name in par.specs[name].split_axes(vocab_dim):
+        out = all_gather(out, -1, par.model)
+    return out
+
+
 # ============================================================ forward ======
 def forward(params, cfg: ModelConfig, batch: dict,
             cache: DecodeCache | None = None, return_cache: bool = False,
             return_hidden: bool = False, backend: str = "auto",
-            moe_groups: int = DEFAULT_MOE_GROUPS, ctx: ShardCtx | None = None):
+            moe_groups: int = DEFAULT_MOE_GROUPS, ctx: ShardCtx | None = None,
+            rows_split: bool = True):
     """Returns (logits, aux) or (logits, aux, cache_out).
 
     cache=None: full-sequence forward; with return_cache=True the
@@ -386,13 +444,13 @@ def forward(params, cfg: ModelConfig, batch: dict,
     over layers (zeros in decode, whose layer scan drops them, and for
     the other families) and the ``loss_mask``.  ``backend`` is the flash
     kernel's (`flash_attention`); ``moe_groups`` the routing groups asked
-    for.  ``ctx`` with a mesh: ``params`` hold this rank's slices and
-    ``batch`` its rows (full-sequence only; see the module docstring).
+    for.  ``ctx`` with a mesh: ``params`` hold this rank's slices,
+    ``batch`` its rows (every row where ``rows_split`` is False) and
+    ``cache`` its slice (see the module docstring); a prefill collects
+    the kv heads this rank computes, all of them where the cache splits
+    its positions over ``model``.
     """
-    par = model_parallel(cfg, ctx)
-    if par is not None and (cache is not None or return_cache):
-        raise NotImplementedError("prefill and decode under a mesh are not "
-                                  "ported; the mesh path trains")
+    par = model_parallel(cfg, ctx, rows_split)
     decode = cache is not None
     collect = return_cache and not decode
     x, positions, positions_thw, loss_mask = _embed(params, cfg, batch, par)
@@ -503,15 +561,7 @@ def forward(params, cfg: ModelConfig, batch: dict,
 
     x = L.rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     aux["loss_mask"] = loss_mask
-    if return_hidden:
-        out = x
-    elif par is None:
-        out = _logits(params, cfg, x)
-    elif par.vocab_split:
-        raise NotImplementedError("logits split over the vocab: train "
-                                  "through loss_fn (return_hidden)")
-    else:
-        out = _logits(par.head(params, cfg), cfg, x)
+    out = x if return_hidden else head_logits(params, cfg, x, par)
     if decode or collect:
         return out, aux, cache_out
     return out, aux

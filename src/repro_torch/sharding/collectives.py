@@ -1,6 +1,6 @@
 """Explicit collectives over one axis of a `DeviceMesh`: what the JAX
-package leaves to GSPMD's partitioner, written out for the trainer's
-(data, model) mesh.
+package leaves to GSPMD's partitioner, written out for the (data, model)
+mesh of the trainer and of the serving steps.
 
   gather(x, dim, axis)      all-gather along ``dim``; backward sums the
                             gradient over the axis and keeps this rank's
@@ -14,6 +14,13 @@ package leaves to GSPMD's partitioner, written out for the trainer's
                             uses for its part only).
   all_reduce_(t, axis, op)  in place, outside autograd
                             (`mesh_all_reduce_`: over every axis).
+  all_gather(x, dim, axis)  all-gather outside autograd (serving: a
+                            decode's q heads, logits split over the
+                            vocab).
+  combine_softmax(m, l, acc, axis)
+                            one softmax from partial statistics over
+                            disjoint key blocks, one block a rank
+                            (decode over a sequence-split cache).
 
 Every rank of the axis must make the same calls in the same order; a
 collective that fails raises.
@@ -117,6 +124,39 @@ class _GradSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_(g.contiguous().clone(), ctx.axis), None
+
+
+def _no_graph(x: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(f"{what} has no backward; it serves")
+
+
+def all_gather(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """The axis's blocks of ``x`` in rank order along ``dim``, outside
+    autograd (a tensor that needs a gradient raises)."""
+    _no_graph(x, "all_gather")
+    return _all_gather(x, dim % x.ndim, axis)
+
+
+def combine_softmax(m, l, acc, axis: MeshAxis) -> torch.Tensor:
+    """``acc / l`` of one softmax whose keys lie in blocks, one a rank of
+    ``axis``: each rank's running max ``m``, sum of exponentials ``l``
+    (both (..., 1)) and unnormalised output ``acc`` (..., D), float32,
+    over its own block.  The statistics are gathered and combined in rank
+    order, so every rank gets the same bits, run after run (a reduction
+    whose order the library picks would not promise that).  A rank whose
+    keys are all masked (``m`` at the mask value) weighs nothing."""
+    _no_graph(acc, "combine_softmax")
+    parts = _all_gather(torch.cat([m, l, acc], -1)[None], 0, axis)
+    ms, ls, accs = parts[..., :1], parts[..., 1:2], parts[..., 2:]
+    top = ms.amax(0)
+    tot_l = torch.zeros_like(l)
+    tot = torch.zeros_like(acc)
+    for r in range(axis.size):
+        w = torch.exp(ms[r] - top)
+        tot_l = tot_l + ls[r] * w
+        tot = tot + accs[r] * w
+    return tot / tot_l
 
 
 def gather(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:

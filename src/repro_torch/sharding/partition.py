@@ -10,7 +10,9 @@ axes do not divide degrades to replication.  Without a mesh every
 constraint is the identity.  The models do not place activations by
 these specs: under a mesh they gather, reduce and split with the
 explicit collectives of `repro_torch.sharding.collectives`, led by the
-parameters' specs (`models.transformer.ModelParallel`).
+parameters' specs (`models.transformer.ModelParallel`).  Serving state
+is placed as the JAX package's dry run places it: a batch by
+`batch_lead`, a decode cache by `cache_specs`.
 """
 from __future__ import annotations
 
@@ -169,6 +171,64 @@ class Sharding:
             size = n // parts
             index.append(slice(part * size, (part + 1) * size))
         return tuple(index)
+
+    def local_shape(self, shape: tuple, coordinate) -> tuple:
+        """The shape of the slice of a ``shape`` array held at
+        ``coordinate``."""
+        return tuple(len(range(*s.indices(n))) for s, n in
+                     zip(self.local_index(shape, coordinate), shape))
+
+
+# ---------------------------------------------------- serving placement ----
+def batch_lead(mesh, rules: ShardingRules, n: int):
+    """The entry that places ``n`` batch rows: the batch axes where their
+    extents divide ``n``, else None (every rank of them holds all the
+    rows), as the JAX package's dry run places a serving batch."""
+    sizes = mesh_axis_sizes(mesh)
+    n_b = 1
+    for a in rules.batch_axes:
+        n_b *= sizes[a]
+    return tuple(rules.batch_axes) if n % n_b == 0 else None
+
+
+def cache_specs(cache, mesh, rules: ShardingRules = PROD_RULES):
+    """Specs of a decode cache (a `DecodeCache` whose leaves are the
+    global arrays, or anything with their ``.shape``; ``()`` where a
+    family keeps none), in its structure, as the JAX package's
+    ``cache_pspecs`` places them: the KV buffers ``(L, B, Smax, KV, hd)``
+    with rows over the batch axes and kv heads over the tensor axis where
+    its extent divides them, otherwise the *sequence* over the tensor axis
+    (each rank holds a run of positions of every kv head); the SSM
+    ``conv`` (``(..., B, K-1, conv_dim)``) and ``ssm`` (``(..., B, H, P,
+    N)``) states with rows over the batch axes and their inner / head
+    dims over the tensor axis by `spec_for`; ``length`` None."""
+    m = mesh_axis_sizes(mesh)[rules.tensor_axis]
+
+    def kv(x):
+        if isinstance(x, tuple):
+            return ()
+        _, B, smax, heads, _ = shape = tuple(x.shape)
+        if heads % m == 0:
+            return spec_for(("layers", "batch", None, "kv_heads", None),
+                            rules, shape, mesh)
+        if smax % m:
+            raise ValueError(
+                f"a decode cache of {smax} positions and {heads} kv heads "
+                f"splits over neither on a '{rules.tensor_axis}' axis of "
+                f"{m}: the sequence split needs max_len a multiple of {m}")
+        return (None, batch_lead(mesh, rules, B), rules.tensor_axis, None,
+                None)
+
+    ssm = cache.ssm
+    if len(ssm):
+        lead = ("layers",) * (ssm.conv.ndim - 3)
+        ssm = type(ssm)(
+            spec_for(lead + ("batch", None, "ssm_inner"), rules,
+                     tuple(ssm.conv.shape), mesh),
+            spec_for(lead + ("batch", "ssm_heads", None, None), rules,
+                     tuple(ssm.ssm.shape), mesh))
+    return cache._replace(kv_k=kv(cache.kv_k), kv_v=kv(cache.kv_v), ssm=ssm,
+                          length=None)
 
 
 def tree_shardings(mesh, axes_tree, shape_tree, rules: ShardingRules):
