@@ -164,6 +164,19 @@ Phases (any failure exits non-zero; nothing is caught):
      to its one-device steps bit for bit (logits and cache); flash
      launches counted over the mesh runs only (kimi-k2 is left out: one
      of its layers costs 2i's time);
+  2m. tensor parallelism over "model" on the one card, after 2l: two
+     processes (this script with `--serve-tp-rank`) form a gloo group
+     over CUDA tensors (NCCL refuses two ranks on one device) and serve
+     llama4-scout, mamba2, zamba2 (2 groups), qwen2-vl and musicgen at
+     published widths cut to 2 layers, on a (1, 2) ("data", "model")
+     mesh: each rank holds its half of the heads, experts, SSM heads and
+     vocab, and of the decode cache; float32 activations, parameters and
+     cache, 8 x 1,024 positions and 4 decode steps fed the tokens the
+     one-device run (this process, freed before the ranks start) chose
+     greedily; every logit and each rank's cache slice within 1e-5 of the
+     largest |value| of the one-device run's, moe routing every token of
+     every layer and step alike; flash launches counted over both ranks
+     ("serve tp");
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -343,6 +356,27 @@ SERVE_MESH_FAMILIES = (
 )
 SERVE_MESH_PROMPT = 1_024
 SERVE_MESH_DECODE = 4
+# Phase 2m: 2l's configs and shapes (2 layer units, 8 x SERVE_MESH_PROMPT
+# positions, SERVE_MESH_DECODE steps) served tensor parallel over a
+# (1, 2) mesh of two processes on the one card, joined by gloo over CUDA
+# tensors, in float32 (activations, parameters and cache) so that the
+# split's other order of float32 sums is all that differs.  Logits and
+# cache must lie within SERVE_TP_RTOL of the largest |value|, as the CPU
+# tests hold the split (tests/test_torch_serve_mesh.py), or within
+# SERVE_TP_FLOOR_FACTOR x the distance between two one-device runs whose
+# float32 sums differ in order only (SSD in chunks of half the config's,
+# attention blockwise in place of the flash kernel: 2i's and 2e's
+# substitutions), where that is larger: random-weight SSM stacks carry a
+# rounding difference up with depth, and zamba2's 12 Mamba2 layers at
+# full width read 4.1e-5 against one device on an H100 (its reordered
+# one-device run 4.1e-5 too), where mamba2's 2 layers read 3.2e-6.  Each
+# entry: the config, the layers kept, the flash launches of one rank's
+# prefill.
+SERVE_TP_FAMILIES = SERVE_MESH_FAMILIES
+SERVE_TP_MESH = (1, 2)
+SERVE_TP_RTOL = 1e-5
+SERVE_TP_FLOOR_FACTOR = 2.0
+SERVE_TP_TIMEOUT = 600       # seconds for the two ranks' processes
 
 # H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
 # non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
@@ -1334,8 +1368,9 @@ def serve_mesh_yi(mesh, ref: dict, out_dir: Path) -> tuple[dict, dict]:
     print(f"[2l] profiled mesh decode step: {p['wall_ms']:.1f} ms wall, "
           f"{p['device_busy_ms']:.1f} ms device-busy, of which "
           f"{p['nccl_device_ms']:.1f} ms in NCCL kernels and "
-          f"{p['copy_device_ms']:.1f} ms in copies (the FSDP gathers of "
-          f"every weight; chiprun_out/profile_lm_decode_mesh.txt)")
+          f"{p['copy_device_ms']:.1f} ms in copies (at a data extent of 1 "
+          f"nothing is gathered: the weights' casts to bf16; "
+          f"chiprun_out/profile_lm_decode_mesh.txt)")
     if not rec["prefill_equal"] or rec["decode_steps_equal"] != LM_DECODE \
             or rec["length"] != LM_MAX_LEN:
         raise RuntimeError(f"yi-6b through the mesh path differs from 2e: "
@@ -1425,6 +1460,258 @@ def serve_mesh_family(name: str, n_layers: int, want_flash: int, seed: int,
                            f"{want_flash} flash launches and nothing "
                            f"else): {launches}")
     return rec, launches
+
+
+def _serve_tp_model(i: int, mesh=None):
+    """Phase 2m's config ``i``: (cfg, parameters, prompt batch, max_len),
+    the parameters whole or, on ``mesh``, this rank's slices of the same
+    draw (the batch drawn after them from the same generator)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_init_params, param_shardings
+
+    name, n_layers, _ = SERVE_TP_FAMILIES[i]
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(name), use_flash_kernel=True,
+                              n_layers=n_layers, dtype="float32",
+                              param_dtype="float32")
+    B, S = LM_BATCH, SERVE_MESH_PROMPT
+    g = torch.Generator(device=dev).manual_seed(SEED + 110 + i)
+    params = model_init_params(
+        cfg, g, dev, None if mesh is None else param_shardings(cfg, mesh),
+        None if mesh is None else mesh.get_coordinate())
+    if cfg.family == "audio":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (B, S, cfg.n_codebooks),
+                                         generator=g, device=dev)}
+    else:
+        sv = S // 4 if cfg.family == "vlm" else 0
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - sv),
+                                         generator=g, device=dev)}
+        if sv:
+            batch["vision_embeds"] = torch.randn(
+                (B, sv, cfg.d_model), generator=g, device=dev) * 0.02
+    return cfg, params, batch, S + SERVE_MESH_DECODE
+
+
+class _Routes:
+    """The expert ids of every MoE routing while it is entered
+    (`moe.route`'s top k), in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.seen, self._moe, self._real = [], moe, moe.route
+
+        def recording(logits, k):
+            out = self._real(logits, k)
+            self.seen.append(out[1].cpu())
+            return out
+
+        moe.route = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        self._moe.route = self._real
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| over max |b| (tensors)."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def serve_tp_reference(i: int, work: Path) -> dict:
+    """Phase 2m, one device: config ``i``'s prefill and greedy decode
+    steps, whose logits, fed tokens, final cache and routings go to
+    ``work`` for the ranks; then the same tokens through the config with
+    its float32 sums in another order (SERVE_TP_FLOOR_FACTOR's note).
+    Its record, with that run's distance ("floor")."""
+    import torch
+
+    from repro_torch.models.model import decode_step, prefill_step
+
+    cfg, params, batch, max_len = _serve_tp_model(i)
+
+    def run(cfg, feed=None):
+        lg, cache = prefill_step(params, batch, cfg, max_len, torch.float32)
+        out, fed = [lg], []
+        for j in range(SERVE_MESH_DECODE):
+            tok = lg.argmax(-1)[:, None] if feed is None else feed[j]
+            fed.append(tok)
+            lg, cache = decode_step(params, cache, tok, cfg)
+            out.append(lg)
+        return torch.stack(out), fed, cache
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Routes() as routes:
+        logits, fed, cache = run(cfg)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    other, _, other_cache = run(dataclasses.replace(
+        cfg, use_flash_kernel=False, ssm_chunk=cfg.ssm_chunk // 2), fed)
+    floor = max([_max_rel(other, logits)] + [
+        _max_rel(a, b) for a, b in zip(_cache_tensors(other_cache),
+                                   _cache_tensors(cache))])
+    torch.save({"logits": logits.cpu(), "fed": [t.cpu() for t in fed],
+                "cache": [t.cpu() for t in _cache_tensors(cache)],
+                "routes": routes}, work / f"ref_{i}.pt")
+    rec = {"one_device_ms": ms, "floor": floor, "param_bytes": sum(
+        t.numel() * t.element_size() for t in _tensors(params))}
+    del params, cache, other_cache, logits, other
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_tp_rank(rank: int, work: Path) -> int:
+    """Phase 2m, one of the two ranks (``python3 chip_smoke.py
+    --serve-tp-rank RANK WORK``): a gloo group over ``work``'s file store,
+    the (1, 2) mesh on the one card, and every config served through it
+    against the one-device run's files; its records into ``work``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.model import decode_step, init_cache, prefill_step
+    from repro_torch.sharding.partition import ShardCtx, Sharding, cache_specs
+
+    torch.cuda.set_device(0)
+    world = SERVE_TP_MESH[0] * SERVE_TP_MESH[1]
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SERVE_TP_TIMEOUT))
+    recs = {}
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(SERVE_TP_MESH),
+                          mesh_dim_names=("data", "model"))
+        coord = mesh.get_coordinate()
+        ctx = ShardCtx(mesh)
+        for i, (name, _, _) in enumerate(SERVE_TP_FAMILIES):
+            ref = torch.load(work / f"ref_{i}.pt")
+            torch.cuda.reset_peak_memory_stats()
+            cfg, params, batch, max_len = _serve_tp_model(i, mesh)
+            _cuda.reset_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _Routes() as routes:
+                lg, cache = prefill_step(params, batch, cfg, max_len,
+                                         torch.float32, ctx=ctx)
+                out = [lg]
+                for tok in ref["fed"]:
+                    lg, cache = decode_step(params, cache, tok.cuda(), cfg,
+                                            ctx=ctx)
+                    out.append(lg)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _cuda.launch_counts()
+            got, want = torch.stack(out).cpu(), ref["logits"]
+            whole = init_cache(cfg, LM_BATCH, max_len, torch.float32,
+                               "meta")
+            specs = cache_specs(whole, mesh)
+            cache_rel = []
+            for t, w, spec in zip(_cache_tensors(cache), ref["cache"],
+                                  [sp for sp in (specs.kv_k, specs.kv_v,
+                                                 *specs.ssm) if len(sp)]):
+                w = w[Sharding(mesh, spec).local_index(tuple(w.shape),
+                                                       coord)]
+                cache_rel.append(_max_rel(t.cpu(), w))
+            recs[name] = {
+                "mesh_ms": ms,
+                "logits_rel": _max_rel(got, want),
+                "cache_rel": max(cache_rel),
+                "routes_equal": len(routes) == len(ref["routes"]) and all(
+                    torch.equal(a, b) for a, b in zip(routes,
+                                                      ref["routes"])),
+                "routings": len(routes),
+                "finite": bool(got.isfinite().all()),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in _tensors(params)),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches}
+            del params, cache, out, lg, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank_{rank}.json").write_text(json.dumps(recs))
+    return 0
+
+
+def serve_tp(out_dir: Path) -> tuple[dict, dict]:
+    """Phase 2m: the one-device runs in this process, freed, then the two
+    ranks' processes; their records and the launches of both ranks'
+    mesh runs.  Raises unless every config agrees within SERVE_TP_RTOL,
+    routes alike and launches its flash kernels and nothing else."""
+    import tempfile
+
+    import torch
+
+    work = Path(tempfile.mkdtemp(prefix="serve_tp_", dir=out_dir)).resolve()
+    try:
+        refs = {}
+        for i, (name, _, _) in enumerate(SERVE_TP_FAMILIES):
+            refs[name] = serve_tp_reference(i, work)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        env = {"GLOO_SOCKET_IFNAME": "lo", **os.environ}
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__)
+                                                       .resolve()),
+                                   "--serve-tp-rank", str(r), str(work)],
+                                  env=env)
+                 for r in range(SERVE_TP_MESH[0] * SERVE_TP_MESH[1])]
+        try:
+            rcs = [p.wait(timeout=SERVE_TP_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.time() - t0
+        if any(rcs):
+            raise RuntimeError(f"phase 2m's ranks exited {rcs}")
+        ranks = [json.loads((work / f"rank_{r}.json").read_text())
+                 for r in range(len(procs))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: 0 for k in REPLACES}
+    recs = {"ranks_s": ranks_s}
+    for name, _, n_flash in SERVE_TP_FAMILIES:
+        per = [r[name] for r in ranks]
+        for p in per:
+            for k, v in p["launches"].items():
+                launches[k] += v
+        rec = {**refs[name], "ranks": per}
+        recs[name] = rec
+        worst = max(max(p["logits_rel"], p["cache_rel"]) for p in per)
+        limit = max(SERVE_TP_RTOL, SERVE_TP_FLOOR_FACTOR * rec["floor"])
+        rec.update(worst=worst, limit=limit)
+        print(f"[2m] {name}: (1, 2) mesh of two gloo ranks on one card, "
+              f"{LM_BATCH} x {SERVE_MESH_PROMPT} positions + "
+              f"{SERVE_MESH_DECODE} decode steps in float32: rank 0 "
+              f"{per[0]['mesh_ms']:.1f} ms, one device "
+              f"{rec['one_device_ms']:.1f} ms; worst logits / cache "
+              f"against one device {worst:.2e} (limit {limit:.2e}: "
+              f"{SERVE_TP_RTOL}, or {SERVE_TP_FLOOR_FACTOR} x the "
+              f"reordered one-device run's {rec['floor']:.2e}); "
+              f"routings alike {all(p['routes_equal'] for p in per)} "
+              f"({per[0]['routings']}); a rank holds "
+              f"{per[0]['param_bytes'] / 1e9:.2f} of "
+              f"{rec['param_bytes'] / 1e9:.2f} GB of parameters, peak "
+              f"{max(p['peak_mem_bytes'] for p in per) / 2**30:.2f} GiB; "
+              f"flash launches {[p['launches']['flash_attention'] for p in per]}")
+        if worst > limit or not all(
+                p["routes_equal"] and p["finite"] for p in per):
+            raise RuntimeError(f"{name}: the (1, 2) mesh differs from one "
+                               f"device: {rec}")
+        if any(p["launches"]["flash_attention"] != n_flash or any(
+                v for k, v in p["launches"].items() if k not in LM_KERNELS)
+               for p in per):
+            raise RuntimeError(f"{name}: a rank's launches are off (want "
+                               f"{n_flash} flash launches and nothing "
+                               f"else): {per}")
+    return recs, launches
 
 
 def main() -> int:
@@ -3330,6 +3617,16 @@ def main() -> int:
                            f"{serve_flash} flash launches and nothing "
                            f"else): {serve_mesh_launches}")
 
+    # ---- 2m. tensor parallelism over model: two gloo ranks on one card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_tp = time.time()
+    record["serve_tp"], serve_tp_launches = serve_tp(out_dir)
+    record["serve_tp"]["seconds"] = time.time() - t_tp
+    print(f"[2m] launches over both ranks' prefills and decodes: "
+          f"{serve_tp_launches}; ranks {record['serve_tp']['ranks_s']:.1f} "
+          f"s; {record['serve_tp']['seconds']:.1f} s")
+
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():
         entry["launches_serve"] = sv[name]
@@ -3338,9 +3635,11 @@ def main() -> int:
         entry["launches_train"] = train_launches[name]
         entry["launches_train_mesh"] = train_mesh_launches[name]
         entry["launches_serve_mesh"] = serve_mesh_launches[name]
+        entry["launches_serve_tp"] = serve_tp_launches[name]
         entry["launches"] += sv[name] + rest_launches[name] \
             + fam_launches[name] + train_launches[name] \
-            + train_mesh_launches[name] + serve_mesh_launches[name]
+            + train_mesh_launches[name] + serve_mesh_launches[name] \
+            + serve_tp_launches[name]
     bad = [k["name"] for k in kernels.values() if not k["match"]]
     if bad:
         raise RuntimeError(f"kernels differ from their plain versions: {bad}")
@@ -3356,4 +3655,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-tp-rank"]:
+        sys.exit(serve_tp_rank(int(sys.argv[2]), Path(sys.argv[3])))
     sys.exit(main())

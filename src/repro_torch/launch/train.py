@@ -20,15 +20,15 @@ rank of the group is one place of a ``(data_mesh, model_mesh)`` mesh
 (`make_host_mesh`; a device ``cuda:LOCAL_RANK``, or the CPU under gloo):
 parameters and AdamW / Adafactor moments are sliced by the JAX
 package's rules (FSDP of ``embed`` over ``data``; tensor parallelism of
-``q_heads`` / ``kv_heads`` / ``ff`` / ``vocab`` over ``model``, the dense
-family only), each rank trains on its rows of the global batch, and
-explicit collectives do what GSPMD does for the JAX package
-(`models.transformer`).  The steps equal the one-device run's within
-float32 summation order (bit for bit on a (1, 1) mesh).  The ranks agree
-on each step's watchdog state and stop flag, so they switch codec or
-stop at the same step.  `train` refuses, before it builds any state, a
-group with ranks outside its mesh and tensor parallelism for a family
-other than dense.
+``q_heads`` / ``kv_heads`` / ``ff`` / ``vocab`` / ``experts`` /
+``ssm_inner`` / ``ssm_heads`` over ``model``, for every family), each
+rank trains on its rows of the global batch, and explicit collectives do
+what GSPMD does for the JAX package (`models.transformer`).  The steps
+equal the one-device run's within float32 summation order (bit for bit
+on a (1, 1) mesh).  The ranks agree on each step's watchdog state and
+stop flag, so they switch codec or stop at the same step.  `train`
+refuses, before it builds any state, a group with ranks outside its
+mesh.
 
 Usage (the GPU unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
@@ -228,10 +228,9 @@ def _init_state(cfg: ModelConfig, opt_cfg: optim.OptConfig,
     return state["params"], state["opt"], latest
 
 
-def _mesh_for(run: TrainRunConfig, cfg: ModelConfig, device, mesh=None):
+def _mesh_for(run: TrainRunConfig, device, mesh=None):
     """The run's mesh under a process group (None without one), after the
-    refusals: a group with ranks outside the mesh, and tensor
-    parallelism for a family other than dense."""
+    refusal of a group with ranks outside the mesh."""
     if not dist.is_initialized():
         return None
     world = dist.get_world_size()
@@ -249,11 +248,6 @@ def _mesh_for(run: TrainRunConfig, cfg: ModelConfig, device, mesh=None):
             f"{shape} (data, model) mesh; the trainer runs every rank in "
             f"its mesh and none alone: launch {used}, or ask for a mesh of "
             f"{world}")
-    if shape[1] > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"tensor parallelism over 'model' ({shape[1]}) is the dense "
-            f"family's only; {run.arch} is {cfg.family}: train it with "
-            f"model_mesh 1")
     if mesh is None:
         mesh = make_host_mesh(run.data_mesh, run.model_mesh, device.type)
     return mesh
@@ -284,7 +278,7 @@ def train(run: TrainRunConfig, mesh=None) -> dict:
     if dist.is_initialized() and device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
-    mesh = _mesh_for(run, cfg, device, mesh)
+    mesh = _mesh_for(run, device, mesh)
     lead = mesh is None or dist.get_rank() == 0
     opt_cfg = optim.OptConfig(lr=run.peak_lr)
     ccfg = CompressConfig(codec=run.codec)

@@ -235,13 +235,20 @@ class TensorParallel:
     the parameter specs split (a dim the axis does not divide stays
     whole on every rank), and whether a decode cache splits its sequence
     over the axis (``seq_split``: the kv heads do not divide by it) or
-    its kv heads (`repro_torch.sharding.partition.cache_specs`)."""
+    its kv heads (`repro_torch.sharding.partition.cache_specs`).  One
+    layout serves every family: attention and the SwiGLU MLP read the
+    first four fields, MoE ``experts_split`` (`models.moe`) and Mamba2
+    ``ssm_split`` (`models.mamba2`)."""
 
     axis: MeshAxis
-    q_split: bool       # wq, bq (columns) and wo (rows)
-    kv_split: bool      # wk, wv, bk, bv (columns)
-    ff_split: bool      # w_gate, w_up (columns) and w_down (rows)
-    seq_split: bool     # the decode cache splits its positions, not kv heads
+    q_split: bool = False       # wq, bq (columns) and wo (rows)
+    kv_split: bool = False      # wk, wv, bk, bv (columns)
+    ff_split: bool = False      # w_gate, w_up (columns) and w_down (rows)
+    seq_split: bool = False     # the decode cache splits its positions,
+                                # not kv heads
+    experts_split: bool = False  # the router's columns and the experts
+    ssm_split: frozenset = frozenset()  # the Mamba2 leaves split (their
+                                        # ssm_inner / ssm_heads dim)
 
 
 def _kv_heads_of(q0: int, nq: int, G: int, kv0: int, k, v):

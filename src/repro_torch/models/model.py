@@ -116,14 +116,28 @@ def chunked_xent(params, x, labels, cfg: ModelConfig, n_chunks: int = 8,
     return tot / (B * S)
 
 
+def audio_xent(params, x, labels, cfg: ModelConfig, par):
+    """audio's loss: the mean cross-entropy over the (B, S, K, V) logits of
+    its K heads, from the final hidden states ``x``.  Where the vocab
+    splits over ``model`` (``par.vocab_split``), each rank computes its
+    (B, S, K, V / model) block of the logits, and the log-sum-exp and
+    each label's logit are reduced over the axis, codebook by codebook."""
+    head = par.head(params, cfg)
+    x = grad_sum(x, par.model)
+    logits = _logits(head, cfg, x)
+    lse, ll = _lse_and_label_logit_vocab_parallel(logits, labels, par.model)
+    return (lse - ll).sum() / labels.numel()
+
+
 def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto",
             ctx: ShardCtx | None = None):
     """The training loss of ``batch`` ({tokens, labels}; vlm also
     vision_embeds): (loss, {"loss": loss}).
 
-    audio: cross-entropy over the (B, S, K, V) logits of its K heads; vlm:
-    over the text positions only (the patch prefix is input only); the
-    other families through `chunked_xent`; moe adds
+    audio: cross-entropy over the (B, S, K, V) logits of its K heads
+    (`audio_xent` where the vocab splits over ``model``); vlm: over the
+    text positions only (the patch prefix is input only); the other
+    families through `chunked_xent`; moe adds
     ``MOE_AUX_WEIGHT * balance_loss + Z_LOSS_WEIGHT * z_loss``.
     ``backend`` is the flash kernel's (`forward`).  Under ``ctx``'s mesh
     (``params``: this rank's slices, ``batch``: its equal share of the
@@ -132,7 +146,11 @@ def loss_fn(params, batch, cfg: ModelConfig, backend: str = "auto",
     """
     par = model_parallel(cfg, ctx)
     labels = batch["labels"]
-    if cfg.family == "audio":
+    if cfg.family == "audio" and par is not None and par.vocab_split:
+        x, aux = forward(params, cfg, batch, return_hidden=True,
+                         backend=backend, ctx=ctx)
+        loss = audio_xent(params, x, labels, cfg, par)
+    elif cfg.family == "audio":
         logits, aux = forward(params, cfg, batch, backend=backend, ctx=ctx)
         mask = torch.ones(labels.shape, dtype=torch.bool,
                           device=labels.device)

@@ -9,6 +9,16 @@ over ``data`` that count is a multiple of the data extent (a data rank's
 rows are a run of whole groups, which it routes), and the aux losses are
 each rank's share of the global batch's; where every rank holds every
 row, each routes all the groups.
+
+Under expert parallelism (``experts``: the ``model`` axis, over which
+the router's columns and the experts split, as the JAX package's rules
+place them) every rank of the axis routes every group of its rows, from
+the router gathered whole, and computes its own experts' slots only; the
+slots are gathered over the axis along E, and every rank runs the same
+combine.  Both gathers keep this rank's block of the gradient in
+backward (`gather_replicated`: every rank repeats what follows them),
+and the dispatch input's gradient is summed over the axis (each rank's
+experts give a part of it).
 Top-k gates are renormalised; capacity overflow drops tokens (the
 residual connection carries them).
 
@@ -31,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import silu
 from repro_torch.models.template import Leaf
-from repro_torch.sharding.collectives import MeshAxis, all_reduce_
+from repro_torch.sharding.collectives import (
+    MeshAxis, all_reduce_, gather_replicated, grad_sum,
+)
 
 
 def moe_template(cfg: ModelConfig, stacked: tuple = ()) -> dict:
@@ -97,11 +109,14 @@ def dispatch(expert_idx: torch.Tensor, E: int, C: int):
 
 
 def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
-                data: MeshAxis | None = None, n_shards: int = 1):
+                data: MeshAxis | None = None, n_shards: int = 1,
+                experts: MeshAxis | None = None):
     """x: (B, S, d) -> ((B, S, d), aux losses).  ``data``: the mesh axis
     that splits the batch (x holds this rank's rows of it), None where x
     holds every row; ``n_shards``: the mesh's extent (data x model), which
-    the group count is a multiple of where it can be."""
+    the group count is a multiple of where it can be; ``experts``: the
+    axis that splits the router's columns and the experts (``p`` holds
+    this rank's block of them), or None."""
     B, S, d = x.shape
     dt = x.dtype
     E, k = cfg.n_experts, cfg.moe_top_k
@@ -116,8 +131,14 @@ def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
     C = capacity_per_group(Ng, cfg)
 
     xg = x.reshape(G, Ng, d)
+    router, xd, e0, ne = p["router"], xg, 0, E
+    if experts is not None:
+        router = gather_replicated(router, -1, experts)
+        xd = grad_sum(xg, experts)
+        ne = E // experts.size
+        e0 = experts.index * ne
     # router: activation-dtype operands, float32 products and sums
-    logits = xg.float() @ p["router"].to(dt).float()
+    logits = xg.float() @ router.to(dt).float()
     gate_vals, expert_idx = route(logits, k)             # (G, Ng, k)
 
     # ---- sort-based dispatch (per group) -----------------------------------
@@ -125,8 +146,8 @@ def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
     gate_s = gate_vals.reshape(G, Ng * k).gather(-1, order)
     gi = torch.arange(G, device=x.device)[:, None]
     buf = torch.zeros((G, E * C + 1, d), dtype=dt, device=x.device)
-    buf[gi, slot] = xg[gi, tok_s]     # dropped items all land in the bin
-    buf = buf[:, :E * C].reshape(G, E, C, d)
+    buf[gi, slot] = xd[gi, tok_s]     # dropped items all land in the bin
+    buf = buf[:, :E * C].reshape(G, E, C, d)[:, e0:e0 + ne]
 
     # ---- expert computation (SwiGLU) ---------------------------------------
     g = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
@@ -136,6 +157,8 @@ def moe_forward(p, x, cfg: ModelConfig, n_groups: int,
     del g, u
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
     del h
+    if experts is not None:
+        out_buf = gather_replicated(out_buf, 1, experts)
 
     # ---- combine: each token's k terms in ascending expert order -----------
     flat = torch.cat([out_buf.reshape(G, E * C, d),

@@ -34,10 +34,12 @@ leaves are gathered over ``data`` just before it runs, inside its remat
 region (so a recompute gathers again and the whole copy lives for one
 layer), and reduce-scattered back in backward (FSDP); the embedding, the
 head and the hybrid shared block are gathered where they are used.  At
-a ``model`` extent above 1 the dense family runs tensor parallel
-(`layers.TensorParallel`, a vocab-parallel embedding); the other
-families raise (ROADMAP 4.8).  The Megatron-SP activation constraint
-changes no value and is not followed.
+a ``model`` extent above 1 every family runs tensor parallel, each
+layer by its `layers.TensorParallel` layout (hybrid's shared block by a
+layout of its own): attention and the SwiGLU MLP as Megatron's, MoE
+expert parallel (`models.moe`), Mamba2 by heads (`models.mamba2`), and
+a vocab-parallel embedding (audio: one a codebook) and head.  The
+Megatron-SP activation constraint changes no value and is not followed.
 
 Prefill and decode run under the mesh too: a decode cache holds this
 rank's slice, placed by `repro_torch.sharding.partition.cache_specs`
@@ -164,8 +166,9 @@ def _remat(fn, on: bool):
 class ModelParallel:
     """A forward's view of the mesh: its ``data`` and ``model`` axes, each
     parameter's spec (`spec_for` of its logical axes on the mesh, a tree
-    in the parameters' structure), the dense layers' tensor-parallel
-    layout (None at a model extent of 1), and ``rows``: the data axis
+    in the parameters' structure), the layers' tensor-parallel layout
+    and hybrid's shared block's (None at a model extent of 1, and
+    ``shared_tp`` for the other families), and ``rows``: the data axis
     where the batch's rows split over it, None where each rank holds all
     of them."""
 
@@ -175,6 +178,7 @@ class ModelParallel:
     tp: L.TensorParallel | None
     vocab_split: bool
     rows: MeshAxis | None
+    shared_tp: L.TensorParallel | None = None
 
     @property
     def n_shards(self) -> int:
@@ -188,6 +192,8 @@ class ModelParallel:
         if isinstance(tree, dict):
             return {k: self.gather_data(tree[k], specs[k], lead)
                     for k in tree}
+        if self.data.size == 1:
+            return tree                 # nothing to gather
         for i, entry in enumerate(specs.spec[lead:]):
             if entry == self.data.name:
                 tree = gather(tree, i, self.data)
@@ -209,30 +215,46 @@ def param_shardings(cfg: ModelConfig, mesh, rules: ShardingRules = PROD_RULES):
     return tree_shardings(mesh, axes_tree(template), template, rules)
 
 
+def tensor_parallel(axis: MeshAxis, specs: dict,
+                    cfg: ModelConfig) -> L.TensorParallel:
+    """The layout over ``axis`` of one block's leaves, from their specs
+    (a block's subtree of `param_shardings`: attention, MLP, MoE or
+    Mamba2 leaves, whichever it has)."""
+    def split(sh) -> bool:
+        return axis.name in sh.spec
+
+    attn, mlp = specs.get("attn"), specs.get("mlp")
+    moe, mamba = specs.get("moe"), specs.get("mamba")
+    return L.TensorParallel(
+        axis,
+        q_split=attn is not None and split(attn["wq"]),
+        kv_split=attn is not None and split(attn["wk"]),
+        ff_split=mlp is not None and split(mlp["w_gate"]),
+        seq_split=attn is not None and cfg.n_kv_heads % axis.size != 0,
+        experts_split=moe is not None and split(moe["w_gate"]),
+        ssm_split=frozenset(() if mamba is None else
+                            (k for k, sh in mamba.items() if split(sh))))
+
+
 def model_parallel(cfg: ModelConfig, ctx: ShardCtx | None,
                    rows_split: bool = True) -> ModelParallel | None:
-    """None without a mesh; tensor parallelism over ``model`` is the dense
-    family's only (NotImplementedError for the others, ROADMAP 4.8).
-    ``rows_split``: whether the batch's rows split over ``data``."""
+    """None without a mesh.  ``rows_split``: whether the batch's rows
+    split over ``data``."""
     if ctx is None or ctx.mesh is None:
         return None
     specs = param_shardings(cfg, ctx.mesh, ctx.rules)
     data, model = mesh_axis(ctx.mesh, "data"), mesh_axis(ctx.mesh, "model")
-    tp, vocab_split = None, False
+    tp = shared_tp = None
+    vocab_split = False
     if model.size > 1:
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"tensor parallelism over 'model' ({model.size}) is the "
-                f"dense family's only (ROADMAP 4.8); {cfg.family} trains "
-                f"and serves at a model extent of 1")
-        attn, mlp = specs["layers"]["attn"], specs["layers"]["mlp"]
-        tp = L.TensorParallel(model, "model" in attn["wq"].spec,
-                              "model" in attn["wk"].spec,
-                              "model" in mlp["w_gate"].spec,
-                              cfg.n_kv_heads % model.size != 0)
-        vocab_split = "model" in specs["embed"].spec
+        tp = tensor_parallel(model, specs["layers"], cfg)
+        if cfg.family == "hybrid":
+            shared_tp = tensor_parallel(
+                model, specs["shared"], dataclasses.replace(cfg,
+                                                            family="dense"))
+        vocab_split = model.name in specs["embed"].spec
     return ModelParallel(data, model, specs, tp, vocab_split,
-                         data if rows_split else None)
+                         data if rows_split else None, shared_tp)
 
 
 # ============================================================= caches ======
@@ -307,15 +329,17 @@ def _dense_block(p, x, cfg, positions, kv_cache, cache_len, positions_thw,
     if "moe" in p:
         rows, shards = (None, 1) if par is None else (par.rows,
                                                        par.n_shards)
-        ff, aux = moe_forward(p["moe"], h, cfg, n_groups, rows, shards)
+        experts = tp.axis if tp is not None and tp.experts_split else None
+        ff, aux = moe_forward(p["moe"], h, cfg, n_groups, rows, shards,
+                              experts)
     else:
         ff = L.mlp_forward(p["mlp"], h, tp)
     return x + ff, new_kv, aux
 
 
-def _ssm_block(p, x, cfg, state):
+def _ssm_block(p, x, cfg, state, tp=None):
     h = L.rmsnorm(x, p["ln"].to(x.dtype), cfg.norm_eps)
-    out, new_state = mamba_forward(p["mamba"], h, cfg, state)
+    out, new_state = mamba_forward(p["mamba"], h, cfg, state, tp)
     return x + out, new_state
 
 
@@ -371,10 +395,17 @@ def _embed(params, cfg: ModelConfig, batch: dict, par=None):
     if par is not None:
         table = par.gather_data(table, par.specs["embed"])
     if cfg.family == "audio":
-        emb = table                           # (K, V, d)
+        # (K, V, d); where its vocab splits over model, this rank's block
+        # of each codebook's table
+        if par is not None and par.vocab_split:
+            def rows(k):
+                return take_fill_vocab_parallel(table[k], tokens[..., k],
+                                                cfg.vocab_size, par.model)
+        else:
+            def rows(k):
+                return take_fill(table[k], tokens[..., k])
         # summed in the parameter dtype, cast once
-        x = sum(take_fill(emb[k], tokens[..., k])
-                for k in range(cfg.n_codebooks)).to(dt)
+        x = sum(rows(k) for k in range(cfg.n_codebooks)).to(dt)
         B, S = tokens.shape[:2]
         positions = torch.arange(S, device=dev).expand(B, S)
         return x, positions, None, torch.ones((B, S), dtype=torch.bool,
@@ -468,6 +499,7 @@ def forward(params, cfg: ModelConfig, batch: dict,
     aux = {"balance_loss": zero, "z_loss": zero}
     remat = cfg.remat and not decode and _builds_graph(params)
     lp = params["layers"]
+    tp = par.tp if par is not None else None
     cache_out = None
 
     def layer_leaves(p, specs, lead):
@@ -479,7 +511,8 @@ def forward(params, cfg: ModelConfig, batch: dict,
         states = []
 
         def ssm_layer(pi, x, st):
-            return _ssm_block(layer_leaves(pi, lp_specs, 1), x, cfg, st)
+            return _ssm_block(layer_leaves(pi, lp_specs, 1), x, cfg, st,
+                              tp)
 
         lp_specs = par.specs["layers"] if par is not None else None
         ssm_block = _remat(ssm_layer, remat)
@@ -499,6 +532,9 @@ def forward(params, cfg: ModelConfig, batch: dict,
     elif cfg.family == "hybrid":
         G, per = _groups(cfg)
         dense_cfg = dataclasses.replace(cfg, family="dense")
+        # the shared block's own layout over model
+        shared_par = par if par is None else dataclasses.replace(
+            par, tp=par.shared_tp)
 
         def group_body(x, pg, g):
             """``per`` SSM layers, then the shared block: (x, the SSM
@@ -512,14 +548,14 @@ def forward(params, cfg: ModelConfig, batch: dict,
             nsts = []
             for j, pj in enumerate(unstack_layers(pg)):
                 st = _state_at(cache.ssm, (g, j)) if decode else None
-                x, nst = _ssm_block(pj, x, cfg, st)
+                x, nst = _ssm_block(pj, x, cfg, st, tp)
                 if decode:
                     _write_state(cache.ssm, (g, j), nst)
                 nsts.append(nst)
             kv = (cache.kv_k[g], cache.kv_v[g]) if decode else None
             x, nkv, _ = _dense_block(shared, x, dense_cfg,
                                      positions, kv, cache_len, positions_thw,
-                                     moe_groups, backend)
+                                     moe_groups, backend, shared_par)
             return x, nsts, nkv
 
         group_body = _remat(group_body, remat)

@@ -6,7 +6,16 @@ mesh of the trainer and of the serving steps.
                             gradient over the axis and keeps this rank's
                             block (reduce-scatter).  FSDP's gather of a
                             leaf before its layer runs, and the gather of
-                            a tensor-parallel leaf a layer needs whole.
+                            a tensor-parallel leaf a layer needs whole,
+                            where each rank computes its share of the
+                            layer from it.
+  gather_replicated(x, dim, axis)
+                            all-gather along ``dim``; backward keeps this
+                            rank's block of the gradient: every rank of
+                            the axis computes the same thing from the
+                            whole (MoE's expert outputs before the
+                            combine, the router), so each rank's gradient
+                            of it is already the whole one.
   reduce_sum(x, axis)       all-reduce sum; backward passes the gradient
                             on (a row-parallel product's partial sums).
   grad_sum(x, axis)         the identity; backward all-reduces the
@@ -105,6 +114,18 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.axis), None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.axis.size
+        return g.narrow(ctx.dim, ctx.axis.index * n, n), None, None
+
+
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -161,6 +182,11 @@ def combine_softmax(m, l, acc, axis: MeshAxis) -> torch.Tensor:
 
 def gather(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
     return _Gather.apply(x, dim % x.ndim, axis)
+
+
+def gather_replicated(x: torch.Tensor, dim: int,
+                      axis: MeshAxis) -> torch.Tensor:
+    return _GatherReplicated.apply(x, dim % x.ndim, axis)
 
 
 def reduce_sum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:

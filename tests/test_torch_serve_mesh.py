@@ -1,9 +1,10 @@
 """repro_torch's LM serving steps over a (data, model) mesh of gloo ranks on
 the CPU: `prefill_step` and `decode_step` with ``ctx=ShardCtx(mesh)`` for
-every family with FSDP over ``data``, tensor parallel over ``model`` for
-the dense one (the decode cache split over kv heads or over positions, as
-repro's dry run splits it), held against the port's one-device steps and
-against repro's GSPMD steps on 4 forced CPU devices.
+every family with FSDP over ``data`` and tensor parallelism over
+``model`` (the decode cache split over kv heads or over positions, the
+SSM states over their inner channels and heads, as repro's dry run splits
+them), held against the port's one-device steps and against repro's
+GSPMD steps on 4 forced CPU devices.
 
 The rank workers are this file's ``__main__``; one launch of 4 ranks runs
 every mesh in turn while one repro process runs the same cases, and each
@@ -23,10 +24,12 @@ final cache within ONE_DEVICE_RTOL of the largest |value|, and bit for
 bit on a (1, 1) mesh.  Against repro on a mesh of the same shape: within
 REPRO_RTOL of the largest |value|.  MoE is held against the one-device
 port only where the mesh routes in the one-device group count (repro
-counts groups over the mesh's shards).
+counts groups over the mesh's shards), and there its routed expert ids
+in every layer and step must equal the one-device steps'.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -67,14 +70,28 @@ CONFIGS = {
     "ssm": ("mamba2-2.7b", {}),
     "vlm": ("qwen2-vl-7b", {}),
     "audio": ("musicgen-medium", {}),
+    # top-k 2 (kimi-k2's smoke config)
+    "moe_k2": ("kimi-k2-1t-a32b", {}),
+    # d_model 48: 6 ssm heads, which a model axis of 4 does not divide
+    # (every rank runs every head; the ssm state stays whole, the conv
+    # window's 128 channels split)
+    "ssm_odd": ("mamba2-2.7b", {"d_model": 48}),
 }
 FAMILIES = ("stablelm", "moe", "hybrid", "ssm", "vlm", "audio")
 DENSE = ("stablelm", "yi_cut_kv", "yi_repl_kv")
+# tensor parallelism over model for every family but dense: the smoke
+# configs' q heads (4), experts (8) and ssm_heads (8) divide every model
+# extent here; one kv head (moe, moe_k2, vlm) does not, so their caches
+# split their positions (and a model extent of 4 leaves audio's and
+# hybrid's 4 kv heads one a rank)
+TP_FAMILIES = ("moe", "moe_k2", "ssm", "hybrid", "vlm", "audio")
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
 # prompt positions: 17 where nothing needs a multiple of 16 (so that the
 # last of the DECODE steps of a MAX_LEN cache writes at the clamp), 16
 # for SSD's chunks and for moe (whose group count then does not change
 # with the mesh)
-PROMPT = {"moe": 16, "hybrid": 16, "ssm": 16, "vlm": 17, "audio": 17}
+PROMPT = {"moe": 16, "moe_k2": 16, "hybrid": 16, "ssm": 16, "ssm_odd": 16,
+          "vlm": 17, "audio": 17}
 VISION = 4                  # vlm: patch embeddings before the text
 
 
@@ -103,7 +120,7 @@ class Case:
 
 
 CASES = (
-    [Case((1, 1), n) for n in FAMILIES]
+    [Case((1, 1), n) for n in FAMILIES + ("moe_k2",)]
     + [Case((2, 1), n) for n in FAMILIES]
     # rows that do not divide data: every data rank serves all 3
     + [Case((2, 1), n, rows=3, tag="/3rows") for n in ("stablelm", "moe")]
@@ -113,6 +130,8 @@ CASES = (
     + [Case((4, 1), n) for n in FAMILIES]
     + [Case((2, 2), n) for n in DENSE]
     + [Case((1, 4), n) for n in DENSE + ("yi_cut_q",)]
+    + [Case(m, n) for m in TP_MESHES for n in TP_FAMILIES]
+    + [Case((1, 4), "ssm_odd")]
 )
 
 
@@ -190,6 +209,40 @@ def _cache_leaves(cache) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _routes():
+    """The expert ids of every routing in the block (`moe.route`'s top k),
+    in call order."""
+    from repro_torch.models import moe
+    seen, real = [], moe.route
+
+    def recording(logits, k):
+        out = real(logits, k)
+        seen.append(out[1].clone())
+        return out
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def _routes_equal(got: list, want: list, rows: tuple, n_rows: int) -> bool:
+    """Whether a mesh rank's routings, layer by layer and step by step,
+    gave each of its rows' tokens the expert ids the one-device steps
+    gave them (``want``: those of all ``n_rows`` rows)."""
+    if len(got) != len(want) or not want:
+        return False
+    for g, w in zip(got, want):
+        w = w.reshape(-1, w.shape[-1])
+        n = w.shape[0] // n_rows
+        if not torch.equal(g.reshape(-1, g.shape[-1]),
+                           w[rows[0] * n:rows[1] * n]):
+            return False
+    return True
+
+
 def _launch(argv_of, n: int) -> list:
     """Start ``n`` worker processes (``argv_of(rank)``) and return them."""
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -264,12 +317,14 @@ def serve_case(case: Case, mesh, whole: dict, one: dict) -> tuple:
     coord = mesh.get_coordinate()
     local = _local(whole, _cfg(case.name), mesh)
     t0 = time.time()
-    logits, cache = _serve(local, case, ShardCtx(mesh))
+    with _routes() as routes:
+        logits, cache = _serve(local, case, ShardCtx(mesh))
     seconds = time.time() - t0
     key = (case.name, case.rows, case.positions, case.max_len)
     if key not in one:
-        one[key] = _serve(whole, case)
-    w_logits, w_cache = one[key]
+        with _routes() as one_routes:
+            one[key] = (*_serve(whole, case), one_routes)
+    w_logits, w_cache, w_routes = one[key]
     # this rank's rows, and its slice of each cache buffer
     d = mesh.get_local_rank("data")
     if batch_lead(mesh, ShardCtx().rules, case.rows) is None:
@@ -297,6 +352,9 @@ def serve_case(case: Case, mesh, whole: dict, one: dict) -> tuple:
            "cache_shapes": {k: list(v.shape) for k, v in got.items()},
            "want_cache_shapes": {k: list(v.shape) for k, v in want.items()},
            "groups_equal": _groups_equal(case)}
+    if w_routes:
+        rec["routes_equal"] = _routes_equal(routes, w_routes, (r0, r1),
+                                            case.rows)
     if rec["logits_shape"] == rec["want_logits_shape"] and \
             rec["cache_shapes"] == rec["want_cache_shapes"]:
         rec["logits_rel"] = rel(logits, want_logits)
@@ -310,21 +368,52 @@ def serve_case(case: Case, mesh, whole: dict, one: dict) -> tuple:
 
 
 def _refusals(mesh, whole: dict, out: dict) -> None:
-    """moe at a model extent of 2, and a sequence split that the cache's
-    positions do not divide: each raises before it serves."""
+    """A sequence split that the cache's positions do not divide raises
+    before it serves."""
     from repro_torch.models.model import prefill_step
     from repro_torch.sharding.partition import ShardCtx
-    for key, name, max_len in (("tp_family", "moe", MAX_LEN),
-                               ("seq_split", "yi_cut_kv", 21)):
-        batch = {k: torch.from_numpy(v) for k, v in
-                 _inputs(Case((1, 2), name))["batch"].items()}
-        try:
-            prefill_step(_local(whole[name], _cfg(name), mesh), batch,
-                         _cfg(name), max_len,
-                         torch.float32, ctx=ShardCtx(mesh))
-            out[f"refuse/{key}"] = "served"
-        except (NotImplementedError, ValueError) as e:
-            out[f"refuse/{key}"] = f"{type(e).__name__}: {e}"
+    name = "yi_cut_kv"
+    batch = {k: torch.from_numpy(v) for k, v in
+             _inputs(Case((1, 2), name))["batch"].items()}
+    try:
+        prefill_step(_local(whole[name], _cfg(name), mesh), batch,
+                     _cfg(name), 21, torch.float32, ctx=ShardCtx(mesh))
+        out["refuse/seq_split"] = "served"
+    except ValueError as e:
+        out["refuse/seq_split"] = f"{type(e).__name__}: {e}"
+
+
+def _audio_embed_case(mesh, whole: dict, out: dict) -> None:
+    """audio's embedding on a model axis that splits its vocab: the
+    embedding of this rank's blocks of the K tables (summed over the axis)
+    against `take_fill` of each whole table, and the former whole-table
+    `_embed` run on the rank's blocks (which reads other rows), over
+    ids that wrap ([-V, -1]) and fall outside [-V, V - 1] too."""
+    from repro_torch.models.transformer import (
+        _embed, model_parallel, take_fill,
+    )
+    from repro_torch.sharding.partition import ShardCtx
+    cfg = _cfg("audio")
+    V, K = cfg.vocab_size, cfg.n_codebooks
+    tokens = torch.from_numpy(_inputs(Case((1, 2), "audio"))["batch"]
+                              ["tokens"]).clone()
+    tokens[0, :4] = torch.tensor([-1, -V, V, -V - 1])[:, None]
+    local = _local(whole, cfg, mesh)
+    par = model_parallel(cfg, ShardCtx(mesh))
+    got = _embed(local, cfg, {"tokens": tokens}, par)[0]
+
+    def embed(table):
+        return sum(take_fill(table[k], tokens[..., k]) for k in range(K))
+    want = embed(whole["embed"])
+    old = embed(local["embed"])
+
+    def same(a, b):
+        return (a == b) | (a.isnan() & b.isnan())
+    out["embed/audio"] = {
+        "vocab_split": par.vocab_split,
+        "block_rows": int(local["embed"].shape[1]),
+        "equal": bool(same(got, want).all()),
+        "old_rows_off": float((~same(old, want).all(-1)).float().mean())}
 
 
 def ranks_worker(out_dir: str, rank: int, world: int, store: str) -> None:
@@ -359,6 +448,7 @@ def ranks_worker(out_dir: str, rank: int, world: int, store: str) -> None:
                 arrays[f"{case.key}/{k}"] = v
             if case.mesh == (1, 2) and case.name == DENSE[-1]:
                 _refusals(mesh, whole, out)
+                _audio_embed_case(mesh, whole["audio"], out)
         out["seconds"] = time.time() - t0
     finally:
         dist.destroy_process_group()
@@ -530,6 +620,8 @@ def test_serve_mesh_matches_one_device(mesh_runs, case):
             assert rec["logits_rel"] <= ONE_DEVICE_RTOL, (r, rec)
             for k, e in rec["cache_rel"].items():
                 assert e <= ONE_DEVICE_RTOL, (r, k, rec)
+            if _cfg(case.name).family == "moe":
+                assert rec["routes_equal"] is True, (r, rec)
         else:
             # the one-device port routes in other groups: repro's test
             assert _cfg(case.name).family == "moe", rec
@@ -637,17 +729,27 @@ def test_odd_moe_prompt_routes_in_repros_groups(mesh_runs):
     assert len(_seen(mesh_runs, "2x1/moe/2x21")) == 2
 
 
-@pytest.mark.parametrize("key", ["tp_family", "seq_split"])
+@pytest.mark.parametrize("key", ["seq_split"])
 def test_serving_refuses_on_a_mesh(mesh_runs, key):
-    """moe at a model extent of 2 (ROADMAP 4.8), and a 21-position cache
-    whose positions a model axis of 2 would split: each raises."""
-    want = {"tp_family": "NotImplementedError: tensor parallelism over "
-                         "'model' (2) is the dense family's only "
-                         "(ROADMAP 4.8)",
-            "seq_split": "ValueError: a decode cache of 21 positions and 1 "
+    """A 21-position cache whose positions a model axis of 2 would split:
+    it raises."""
+    want = {"seq_split": "ValueError: a decode cache of 21 positions and 1 "
                          "kv heads splits over neither"}
     for r in (2, 3):
         assert mesh_runs["ranks"][r][f"refuse/{key}"].startswith(want[key])
+
+
+def test_audio_embedding_reads_the_rank_block(mesh_runs):
+    """On the (1, 2) mesh, audio's (K, V, d) embedding splits its vocab:
+    each rank holds V / 2 rows of each codebook's table.  The vocab-split
+    embedding equals `take_fill` of the whole tables bit for bit (wrapped
+    ids and NaN rows too); the former `_embed`, `take_fill` over each
+    table a rank holds, reads other rows or NaN for most tokens."""
+    for r in (2, 3):
+        got = mesh_runs["ranks"][r]["embed/audio"]
+        assert got["vocab_split"] and got["block_rows"] == 128, got
+        assert got["equal"], got
+        assert got["old_rows_off"] > 0.5, got
 
 
 # ------------------------------------ placement at the published widths --

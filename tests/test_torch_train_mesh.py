@@ -1,18 +1,19 @@
 """repro_torch's trainer over a (data, model) mesh of gloo ranks on the CPU:
-FSDP over ``data`` for every family, tensor parallelism over ``model``
-for the dense one, held against the port's one-device step and against
-repro's GSPMD step on 4 forced CPU devices.
+FSDP over ``data`` and tensor parallelism over ``model`` for every family
+(MoE expert parallel, Mamba2 by heads), held against the port's
+one-device step and against repro's GSPMD steps on 4 forced CPU devices.
 
 The rank workers are this file's ``__main__``; one launch of 4 ranks runs
-every mesh in turn and writes what each rank saw to a JSON file, which
-the tests read:
+every mesh in turn, beside one repro process, and writes what each rank
+saw to a JSON file, which the tests read:
 
     python tests/test_torch_train_mesh.py ranks OUT RANK 4 INIT_FILE
     python tests/test_torch_train_mesh.py resume OUT RANK 2 INIT_FILE
     python tests/test_torch_train_mesh.py repro OUT
 
-(``repro`` runs repro's step under
-XLA_FLAGS=--xla_force_host_platform_device_count=4.)
+(``repro`` runs repro's steps under
+XLA_FLAGS=--xla_force_host_platform_device_count=4; the ranks wait for
+its file before the cases that read it.)
 
 One step from the same parameters, moments and batch (after one
 one-device step, so the moments are not zero): the loss within 1e-5
@@ -23,10 +24,15 @@ one-device update (AdamW's first steps move an entry near eps by up to
 lr); the int8 residual within 1e-3 of the largest residual, for all but
 0.1 % of entries (an entry on a rounding boundary moves by one scale).
 These are chip_smoke.py's TRAIN_CPU_* tolerances.  A (1, 1) mesh equals
-the one-device step bit for bit.
+the one-device step bit for bit.  Every family but dense is held at the
+(data, model) meshes (1, 2), (2, 2) and (1, 4) against the one-device
+step and against repro's step on a mesh of that shape, both from one
+state (the port's one-device state after one step); moe's routed expert
+ids in every layer must equal the one-device step's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -88,7 +94,21 @@ CONFIGS = {
     "ssm": ("mamba2-2.7b", {}),
     "vlm": ("qwen2-vl-7b", {}),
     "audio": ("musicgen-medium", {}),
+    # top-k 2 (kimi-k2's smoke config), float32 parameters
+    "moe_k2": ("kimi-k2-1t-a32b", {"param_dtype": "float32"}),
+    # d_model 48: 6 ssm heads, which a model axis of 4 does not divide
+    # (every rank runs every head); w_in's 230 columns stay whole there,
+    # the conv's 128 channels and d_inner's 96 split
+    "ssm_odd": ("mamba2-2.7b", {"d_model": 48}),
 }
+# tensor parallelism over model for every family but dense, at every mesh
+# that splits model; the smoke configs' q heads (4), experts (8) and
+# ssm_heads (8) divide each, and a kv head of moe (both) and vlm does not
+# (their wk / wv columns are cut and gathered, as yi_cut_kv's)
+TP_FAMILIES = ("moe", "moe_k2", "ssm", "hybrid", "vlm", "audio")
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_CASES = ([(mesh, name) for mesh in TP_MESHES for name in TP_FAMILIES]
+            + [((1, 4), "ssm_odd")])
 
 
 def _run(arch: str, codec: str = "none", ga: int = 1, **kw):
@@ -146,15 +166,25 @@ def _files(d) -> dict:
             .hexdigest() for f in sorted(os.listdir(d))}
 
 
-def _launch(argv_of, n: int, tmp) -> list[str]:
-    """Start ``n`` worker processes (``argv_of(rank)``), wait for them and
-    return their outputs; every one must exit 0."""
+def _start(argv_of, n: int) -> list:
+    """Start ``n`` worker processes (``argv_of(rank)``) and return them."""
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
-    procs = [subprocess.Popen(argv_of(r), env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
+    return [subprocess.Popen(argv_of(r), env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+
+
+def _launch(argv_of, n: int) -> list[str]:
+    """Start ``n`` worker processes, wait for them and return their
+    outputs; every one must exit 0."""
+    return _wait(_start(argv_of, n))
+
+
+def _wait(procs) -> list[str]:
+    """Wait for every process and return their outputs; each must exit
+    0."""
     outs = []
     try:
         for p in procs:
@@ -206,10 +236,33 @@ def _template_leaves(cfg):
     return list(leaves(model_template(cfg)))
 
 
-def step_case(mesh, cfg, run, ocfg, ccfg, start=None, want=None) -> dict:
+@contextlib.contextmanager
+def _routes():
+    """The expert ids of every routing in the block (`moe.route`'s top k),
+    in call order."""
+    from repro_torch.models import moe
+    seen, real = [], moe.route
+
+    def recording(logits, k):
+        out = real(logits, k)
+        seen.append(out[1].clone())
+        return out
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def step_case(mesh, cfg, run, ocfg, ccfg, start=None, want=None,
+              repro=None) -> dict:
     """One mesh step against the one-device step (or ``want``: repro's
-    metrics, parameters and codec state) from the same state: the
-    numbers the tests hold to their tolerances."""
+    metrics, parameters and codec state) from the same state: the numbers
+    the tests hold to their tolerances; with ``repro`` (repro's step from
+    the same state), the same numbers against it under "repro".  For moe
+    against the one-device step, ``routes_equal``: every layer's expert
+    ids equal the one-device step's for this rank's rows."""
     coord = mesh.get_coordinate()
     psh = param_shardings(cfg, mesh)
     osh = topt.opt_state_sharding(
@@ -218,12 +271,14 @@ def step_case(mesh, cfg, run, ocfg, ccfg, start=None, want=None) -> dict:
     params, opt, comp = start if start is not None else \
         _state_after_one_step(cfg, run, ocfg, ccfg)
     batch = _batch(cfg, 1)
+    one_routes = None
     if want is None:
         rp, ro, rc = _clone(params), _clone(opt), _clone(comp)
         for p in tree_leaves(rp):
             p.requires_grad_(True)
-        rp, ro, rc, rm = T.make_train_step(cfg, ocfg, run, ccfg)(
-            rp, ro, rc, batch, 1)
+        with _routes() as one_routes:
+            rp, ro, rc, rm = T.make_train_step(cfg, ocfg, run, ccfg)(
+                rp, ro, rc, batch, 1)
         want = {"loss": float(rm["loss"]), "gnorm": float(rm["gnorm"]),
                 "params": _clone(rp), "error": rc.error}
 
@@ -239,42 +294,66 @@ def step_case(mesh, cfg, run, ocfg, ccfg, start=None, want=None) -> dict:
         p.requires_grad_(True)
     numels_ok = _local_numels_ok(cfg, mesh, lp)
     start_local = _clone(lp)
-    lp, lo, lc, m = T.make_train_step(cfg, ocfg, run, ccfg, mesh)(
-        lp, lo, lc, batch, 1)
-    sums = []
+    with _routes() as mesh_routes:
+        lp, lo, lc, m = T.make_train_step(cfg, ocfg, run, ccfg, mesh)(
+            lp, lo, lc, batch, 1)
     shs = tree_leaves(psh)
-    for sh, got, w, s0 in zip(shs, tree_leaves(lp),
-                              tree_leaves(want["params"]),
-                              tree_leaves(start_local)):
-        d_want = cut(w, sh) - s0
-        err = (got.detach() - s0) - d_want
-        own = float(sh.counted_here(coord))
-        sums += [own * float(err.double().square().sum()),
-                 own * float(d_want.double().square().sum())]
-    res_off = res_n = 0.0
-    if ccfg.codec == "int8":
-        errs = tree_leaves(lc.error)
-        wants = [cut(e, sh) for e, sh in zip(tree_leaves(want["error"]),
-                                             shs)]
-        # the whole leaf's largest residual, then the entries off by more
-        # than RESIDUAL_RTOL of it
-        mx = _mesh_max([float(w.abs().max()) for w in wants], mesh)
-        for e, w, sh, top in zip(errs, wants, shs, mx):
+
+    def against(want):
+        sums = []
+        for sh, got, w, s0 in zip(shs, tree_leaves(lp),
+                                  tree_leaves(want["params"]),
+                                  tree_leaves(start_local)):
+            d_want = cut(w, sh) - s0
+            err = (got.detach() - s0) - d_want
             own = float(sh.counted_here(coord))
-            res_off += own * float(((e - w).abs()
-                                    > RESIDUAL_RTOL * top + 1e-12).sum())
-            res_n += own * e.numel()
-        res_off, res_n = _mesh_sum([res_off, res_n], mesh)
-    sums = _mesh_sum(sums, mesh)
-    rel = [np.sqrt(sums[i]) / max(np.sqrt(sums[i + 1]), LR)
-           for i in range(0, len(sums), 2)]
-    return {"loss": float(m["loss"]), "loss_want": want["loss"],
-            "gnorm": float(m["gnorm"]), "gnorm_want": want["gnorm"],
-            "update_rel_worst": max(rel), "numels_ok": numels_ok,
-            "residual_off_share": res_off / res_n if res_n else 0.0,
-            "split_leaves": sum(any(sh.split_axes(i)
-                                    for i in range(len(sh.spec)))
-                                for sh in shs)}
+            sums += [own * float(err.double().square().sum()),
+                     own * float(d_want.double().square().sum())]
+        res_off = res_n = 0.0
+        if ccfg.codec == "int8":
+            errs = tree_leaves(lc.error)
+            wants = [cut(e, sh) for e, sh in zip(tree_leaves(want["error"]),
+                                                 shs)]
+            # the whole leaf's largest residual, then the entries off by
+            # more than RESIDUAL_RTOL of it
+            mx = _mesh_max([float(w.abs().max()) for w in wants], mesh)
+            for e, w, sh, top in zip(errs, wants, shs, mx):
+                own = float(sh.counted_here(coord))
+                res_off += own * float(((e - w).abs()
+                                        > RESIDUAL_RTOL * top + 1e-12).sum())
+                res_n += own * e.numel()
+            res_off, res_n = _mesh_sum([res_off, res_n], mesh)
+        sums = _mesh_sum(sums, mesh)
+        rel = [np.sqrt(sums[i]) / max(np.sqrt(sums[i + 1]), LR)
+               for i in range(0, len(sums), 2)]
+        return {"loss": float(m["loss"]), "loss_want": want["loss"],
+                "gnorm": float(m["gnorm"]), "gnorm_want": want["gnorm"],
+                "update_rel_worst": max(rel), "numels_ok": numels_ok,
+                "residual_off_share": res_off / res_n if res_n else 0.0,
+                "split_leaves": sum(any(sh.split_axes(i)
+                                        for i in range(len(sh.spec)))
+                                    for sh in shs)}
+
+    out = against(want)
+    if repro is not None:
+        out["repro"] = against(repro)
+    if cfg.family == "moe" and one_routes is not None:
+        out["routes_equal"] = _routes_equal(mesh_routes, one_routes, mesh)
+    return out
+
+
+def _routes_equal(mesh_routes: list, one_routes: list, mesh) -> bool:
+    """Whether a mesh rank routed as the one-device step did, layer by
+    layer: its (G / data, Ng, k) expert ids against the block of the
+    one-device (G, Ng, k) that its data coordinate's rows make."""
+    if len(mesh_routes) != len(one_routes) or not one_routes:
+        return False
+    d, n = mesh.get_local_rank("data"), mesh.size(0)
+    for got, want in zip(mesh_routes, one_routes):
+        g = want.shape[0] // n
+        if not torch.equal(got, want[d * g:(d + 1) * g]):
+            return False
+    return True
 
 
 def _mesh_max(values: list, mesh) -> list:
@@ -323,13 +402,14 @@ def _step_cases(tag: str, mesh, names, out: dict) -> None:
             mesh, cfg, _run("stablelm-3b"), ocfg, CompressConfig())
 
 
-def _checkpoint_case(out_dir: str, mesh, rank: int, out: dict) -> None:
+def _checkpoint_case(out_dir: str, mesh, rank: int, out: dict,
+                     name: str = "stablelm") -> None:
     """The same state saved by one device and by the mesh (sync and
     async): the same files, byte for byte."""
-    cfg = _cfg("stablelm-3b")
+    arch, width = CONFIGS[name]
+    cfg = _cfg(arch, **width)
     ocfg, ccfg = topt.OptConfig(lr=LR), CompressConfig()
-    params, opt, _ = _state_after_one_step(cfg, _run("stablelm-3b"), ocfg,
-                                           ccfg)
+    params, opt, _ = _state_after_one_step(cfg, _run(arch), ocfg, ccfg)
     coord = mesh.get_coordinate()
     psh = param_shardings(cfg, mesh)
     osh = topt.opt_state_sharding(psh, params, ocfg, _repl(mesh))
@@ -342,7 +422,9 @@ def _checkpoint_case(out_dir: str, mesh, rank: int, out: dict) -> None:
              "opt": topt.OptState(*(_zipmap(cut, f, s)
                                     for f, s in zip(opt, osh)))}
     places = {"params": psh, "opt": osh}
-    root = os.path.join(out_dir, "ckpt_bytes")
+    key, root = ("checkpoint", "ckpt_bytes") if name == "stablelm" else (
+        f"checkpoint/{name}", f"ckpt_bytes_{name}")
+    root = os.path.join(out_dir, root)
     if rank == 0:
         Checkpointer(os.path.join(root, "one")).save(4, tree, {"loss": 1.5})
     Checkpointer(os.path.join(root, "mesh")).save(
@@ -360,23 +442,74 @@ def _checkpoint_case(out_dir: str, mesh, rank: int, out: dict) -> None:
     # the restored DTensors saved again
     Checkpointer(os.path.join(root, "dtensor")).save(4, got, {"loss": 1.5})
     step = f"step_{4:010d}"
-    out["checkpoint"] = {k: _files(os.path.join(root, k, step))
-                         for k in ("one", "mesh", "mesh_async", "dtensor")}
-    out["checkpoint"]["restored_equal"] = bool(same)
+    out[key] = {k: _files(os.path.join(root, k, step))
+                for k in ("one", "mesh", "mesh_async", "dtensor")}
+    out[key]["restored_equal"] = bool(same)
 
 
 def _refusals(out_dir: str, out: dict) -> None:
-    for key, run in (
-            ("outside", _run("stablelm-3b", data_mesh=1, model_mesh=2)),
-            ("tp_family", _run("kimi-k2-1t-a32b", data_mesh=2,
-                               model_mesh=2))):
-        d = os.path.join(out_dir, f"refuse_{key}")
-        try:
-            T.train(dataclasses.replace(run, ckpt_dir=d))
-            out[f"refuse/{key}"] = "trained"
-        except NotImplementedError as e:
-            out[f"refuse/{key}"] = str(e)
-        out[f"refuse/{key}/state"] = os.path.exists(d)
+    d = os.path.join(out_dir, "refuse_outside")
+    try:
+        T.train(_run("stablelm-3b", data_mesh=1, model_mesh=2, ckpt_dir=d))
+        out["refuse/outside"] = "trained"
+    except NotImplementedError as e:
+        out["refuse/outside"] = str(e)
+    out["refuse/outside/state"] = os.path.exists(d)
+
+
+def _tp_run(arch: str, ckpt_dir: str):
+    """train() of one step of ``arch``'s smoke config on a (2, 2) mesh (a
+    model extent of 2) or on one device."""
+    return _run(arch, steps=1, ckpt_interval=100, data_mesh=2, model_mesh=2,
+                ckpt_dir=ckpt_dir)
+
+
+def _tp_cases(mesh, starts, repro, out: dict) -> None:
+    """Every family but dense on ``mesh``: one step from the port's
+    one-device state after one step (``starts``), against the one-device
+    step and against repro's step from that state (``repro``)."""
+    from repro_torch.convert import lm_params_from_jax
+    tag = "x".join(map(str, mesh.shape))
+    for name in (n for m, n in TP_CASES if m == tuple(mesh.shape)):
+        arch, width = CONFIGS[name]
+        cfg = _cfg(arch, **width)
+        want = {"loss": float(repro[f"{name}/{tag}/loss"]),
+                "gnorm": float(repro[f"{name}/{tag}/gnorm"]),
+                "params": lm_params_from_jax(
+                    _npz_tree(repro, f"{name}/{tag}/p"), cfg), "error": ()}
+        out[f"{tag}/{name}/none/1"] = step_case(
+            mesh, cfg, _run(arch), topt.OptConfig(lr=LR), CompressConfig(),
+            _load_start(starts, name, cfg), repro=want)
+        out[f"codec/{tag}/{name}"] = _codec_case(mesh, cfg)
+
+
+def _codec_case(mesh, cfg) -> bool:
+    """The int8 codec on this rank's slices of a gradient tree (the
+    scale a whole leaf's max over the mesh, the error buffers sliced like
+    their leaf), against the codec on the whole tree, over two steps:
+    equal wire values and residuals, bit for bit."""
+    from repro_torch.optim.compress import compress
+    coord = mesh.get_coordinate()
+    psh = param_shardings(cfg, mesh)
+    ccfg = CompressConfig(codec="int8")
+    gen = torch.Generator().manual_seed(8)
+    grads = [init_params(model_template(cfg), gen, "float32", "cpu")
+             for _ in range(2)]
+
+    def cut(t, sh):
+        return t[sh.local_index(tuple(t.shape), coord)].clone()
+
+    one, mine = init_state(grads[0], ccfg), init_state(_zipmap(
+        cut, grads[0], psh), ccfg)
+    same = True
+    for g in grads:
+        wire, one, dec = compress(g, one, ccfg)
+        lwire, mine, ldec = compress(_zipmap(cut, g, psh), mine, ccfg, psh)
+        for got, want, sh in zip(tree_leaves((ldec(lwire), mine.error)),
+                                 tree_leaves((dec(wire), one.error)),
+                                 tree_leaves((psh, psh))):
+            same &= torch.equal(got, cut(want, sh))
+    return bool(same)
 
 
 def _runtime_cases(out_dir: str, rank: int, out: dict) -> None:
@@ -437,23 +570,74 @@ def _elastic_run(out_dir: str, **kw):
                 **kw)
 
 
-def _load_repro(path: str):
+def _npz_tree(z, prefix: str) -> dict:
+    """The nested tree of an npz file's arrays under ``prefix/``."""
+    out: dict = {}
+    for k in z.files:
+        if k.startswith(prefix + "/"):
+            node = out
+            *parents, last = k[len(prefix) + 1:].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[last] = z[k]
+    return out
+
+
+def _flat(tree, cfg, prefix: str) -> dict:
+    """{prefix/path: numpy} of a parameter-shaped tree of tensors."""
+    out = {}
+    for path, _ in _template_leaves(cfg):
+        node = tree
+        for k in path.split("/"):
+            node = node[k]
+        out[f"{prefix}/{path}"] = node.detach().numpy()
+    return out
+
+
+def _starts(cfg, name: str) -> dict:
+    """The npz entries of the port's one-device state after one step and
+    of the batch of the step after it."""
+    params, opt, _ = _state_after_one_step(cfg, _run(CONFIGS[name][0]),
+                                           topt.OptConfig(lr=LR),
+                                           CompressConfig())
+    out = {**_flat(params, cfg, f"{name}/p"), **_flat(opt.m, cfg, f"{name}/m"),
+           **_flat(opt.v, cfg, f"{name}/v"),
+           f"{name}/step": opt.step.numpy()}
+    # (vlm's bf16 patch embeddings in float32, which repro casts to its
+    # float32 activations as the port casts the bf16 ones)
+    out.update((f"{name}/b/{k}", (v.float() if v.is_floating_point() else v)
+                .numpy()) for k, v in _batch(cfg, 1).items())
+    return out
+
+
+def _load_start(z, name: str, cfg):
+    from repro_torch.convert import lm_params_from_jax, opt_state_from_jax
+    from repro_torch.optim.compress import CompressState
+    return (lm_params_from_jax(_npz_tree(z, f"{name}/p"), cfg),
+            opt_state_from_jax((_npz_tree(z, f"{name}/m"),
+                                _npz_tree(z, f"{name}/v"),
+                                z[f"{name}/step"])),
+            CompressState(()))
+
+
+def _wait_for(path: str):
+    """An npz file another process writes (renamed into place whole)."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > WORKER_TIMEOUT:
+            raise TimeoutError(path)
+        time.sleep(0.2)
+    return np.load(path)
+
+
+def _load_repro(z):
     """repro's state after its step 0 (the port's trees) and its step 1."""
     from repro_torch.convert import (
         compress_state_from_jax, lm_params_from_jax, opt_state_from_jax,
     )
-    z = np.load(path)
 
     def tree(prefix):
-        out = {}
-        for k in z.files:
-            if k.startswith(prefix + "/"):
-                node = out
-                *parents, last = k[len(prefix) + 1:].split("/")
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[last] = z[k]
-        return out
+        return _npz_tree(z, prefix)
 
     cfg = _cfg("stablelm-3b")
     start = (lm_params_from_jax(tree("p0"), cfg),
@@ -503,12 +687,22 @@ def ranks_worker(out_dir: str, rank: int, world: int, store: str) -> None:
                         out)
         _step_cases("2x2", m22, ("stablelm", "yi_cut_kv"), out)
         _step_cases("1x4", m14, ("yi_repl_kv", "yi_cut_q"), out)
-        start, want = _load_repro(os.path.join(out_dir, "repro.npz"))
+        repro = _wait_for(os.path.join(out_dir, "repro.npz"))
+        starts = np.load(os.path.join(out_dir, "starts.npz"))
+        for mesh in ((m12,) if rank >= 2 else ()) + (m22, m14):
+            _tp_cases(mesh, starts, repro, out)
+        start, want = _load_repro(repro)
         out["repro/2x2/int8"] = step_case(
             m22, _cfg("stablelm-3b"), _run("stablelm-3b", "int8"),
             topt.OptConfig(lr=LR), CompressConfig(codec="int8"), start, want)
         out["repro/restored"] = _restore_repro_case(out_dir, m22, start)
         _checkpoint_case(out_dir, m22, rank, out)
+        for name in ("moe", "hybrid"):      # experts; ssm_inner / ssm_heads
+            _checkpoint_case(out_dir, m14, rank, out, name)
+        for name in TP_FAMILIES:
+            arch = CONFIGS[name][0]
+            out[f"train/{name}"] = T.train(_tp_run(
+                arch, os.path.join(out_dir, f"tp_train_{name}")))
         _refusals(out_dir, out)
         _runtime_cases(out_dir, rank, out)
         out["elastic/first"] = T.train(_elastic_run(
@@ -612,8 +806,40 @@ def repro_worker(out_dir: str) -> None:
     put("e1", comp.error)
     saved["loss1"] = np.asarray(m["loss"])
     saved["gnorm1"] = np.asarray(m["gnorm"])
-    np.savez(os.path.join(out_dir, "repro.npz"), **saved)
-    print("ok: repro (2, 2) int8 steps 0 and 1")
+    # every family but dense, one step at each mesh that splits model,
+    # from the port's one-device state after one step
+    starts = np.load(os.path.join(out_dir, "starts.npz"))
+    for shape, name in TP_CASES:
+        arch, width = CONFIGS[name]
+        cfg = JModelConfig(**dataclasses.asdict(_cfg(arch, **width)))
+        run = jtrain.TrainRunConfig(arch=arch, steps=10, global_batch=BATCH,
+                                    seq_len=SEQ, peak_lr=LR, warmup_steps=0)
+        batch = jax.tree.map(jnp.asarray, _npz_tree(starts, f"{name}/b"))
+        mesh = make_host_mesh(*shape)
+        psh = tree_shardings(mesh, jaxes(cfg),
+                             model_abstract_params(cfg), rules)
+
+        def place(prefix):
+            return jax.device_put(jax.tree.map(
+                jnp.asarray, _npz_tree(starts, prefix)), psh)
+
+        params = place(f"{name}/p")
+        opt = jopt.OptState(place(f"{name}/m"), place(f"{name}/v"),
+                            jnp.asarray(starts[f"{name}/step"]))
+        comp = jinit(params, JCC())
+        step = jax.jit(jtrain.make_train_step(
+            cfg, ocfg, run, ShardCtx(mesh=mesh, rules=rules), JCC()))
+        with mesh:
+            params, _, _, m = step(params, opt, comp, batch, jnp.int32(1))
+        tag = f"{name}/{shape[0]}x{shape[1]}"
+        put(f"{tag}/p", params)
+        saved[f"{tag}/loss"] = np.asarray(m["loss"])
+        saved[f"{tag}/gnorm"] = np.asarray(m["gnorm"])
+    # renamed into place whole: the ranks wait for it
+    np.savez(os.path.join(out_dir, "repro.tmp.npz"), **saved)
+    os.replace(os.path.join(out_dir, "repro.tmp.npz"),
+               os.path.join(out_dir, "repro.npz"))
+    print("ok: repro (2, 2) int8 steps 0 and 1, and every family's steps")
 
 
 # ------------------------------------------------------------------ tests --
@@ -627,42 +853,46 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
-    """repro's (2, 2) step, then the 4-rank launch, then the 2-rank resume;
-    and the uninterrupted one-device run the resume is held against."""
+    """repro's steps beside the 4-rank launch, then the 2-rank resume; and
+    the one-device runs the resume and the trainer's model splits are held
+    against."""
     out = tmp_path_factory.mktemp("mesh")
     cfg = _cfg("stablelm-3b")
     params = init_params(model_template(cfg), torch.Generator().manual_seed(
         6), cfg.param_dtype, "cpu")
-    inputs = {}
-    for path, lf in _template_leaves(cfg):
-        node = params
-        for k in path.split("/"):
-            node = node[k]
-        inputs[f"p/{path}"] = node.numpy()
+    inputs = _flat(params, cfg, "p")
     for s in (0, 1):
         for k, v in _batch(cfg, s).items():
             inputs[f"b{s}/{k}"] = v.numpy()
     np.savez(out / "inputs.npz", **inputs)
+    starts = {}
+    for name in sorted({n for _, n in TP_CASES}):
+        arch, width = CONFIGS[name]
+        starts.update(_starts(_cfg(arch, **width), name))
+    np.savez(out / "starts.npz", **starts)
     t0 = time.time()
-    _launch(lambda r: [sys.executable, __file__, "repro", str(out)], 1, out)
+    procs = _start(lambda r: [sys.executable, __file__, "repro", str(out)], 1)
+    procs += _start(lambda r: [sys.executable, __file__, "ranks", str(out),
+                               str(r), "4", str(out / "store4")], 4)
+    _wait(procs)
     t1 = time.time()
-    _launch(lambda r: [sys.executable, __file__, "ranks", str(out), str(r),
-                       "4", str(out / "store4")], 4, out)
-    t2 = time.time()
     _launch(lambda r: [sys.executable, __file__, "resume", str(out), str(r),
-                       "2", str(out / "store2")], 2, out)
-    t3 = time.time()
+                       "2", str(out / "store2")], 2)
+    t2 = time.time()
     ranks = [json.load(open(out / f"ranks_{r}.json")) for r in range(4)]
     resume = [json.load(open(out / f"resume_{r}.json")) for r in range(2)]
     saved = T.Watchdog, T._model_cfg
     T.Watchdog, T._model_cfg = _Steady, _float32_model_cfg
     try:
         one = T.train(_elastic_run(str(out / "one")))
+        one_tp = {name: T.train(_tp_run(CONFIGS[name][0],
+                                        str(out / f"one_tp_{name}")))
+                  for name in TP_FAMILIES}
     finally:
         T.Watchdog, T._model_cfg = saved
-    print(f"repro {t1 - t0:.1f} s, 4 ranks {t2 - t1:.1f} s, resume "
-          f"{t3 - t2:.1f} s")
-    return {"dir": out, "ranks": ranks, "resume": resume, "one": one}
+    print(f"repro and 4 ranks {t1 - t0:.1f} s, resume {t2 - t1:.1f} s")
+    return {"dir": out, "ranks": ranks, "resume": resume, "one": one,
+            "one_tp": one_tp}
 
 
 def _case(mesh_runs, key):
@@ -680,22 +910,56 @@ STEP_KEYS = (
     + ["1x2/yi_cut_kv/none/1",
        "1x2/qwen_bias/none/1", "2x2/yi_cut_kv/none/1",
        "1x4/yi_repl_kv/none/1", "1x4/yi_cut_q/none/1", "repro/2x2/int8"])
+TP_KEYS = [f"{d}x{m}/{f}/none/1" for (d, m), f in TP_CASES]
 
 
-@pytest.mark.parametrize("key", STEP_KEYS)
-def test_mesh_step_matches_one_device(mesh_runs, key):
-    """One mesh step against the one-device port step (repro's GSPMD step
-    for ``repro/``) from the same state and batch."""
-    seen = _case(mesh_runs, key)
-    for r in seen:
-        assert r == seen[0], (key, seen)     # the ranks agree exactly
-    r = seen[0]
+def _hold_step(r) -> None:
     assert r["loss"] == pytest.approx(r["loss_want"], rel=LOSS_RTOL), r
     assert r["gnorm"] == pytest.approx(r["gnorm_want"], rel=GNORM_RTOL), r
     assert r["update_rel_worst"] <= UPDATE_RTOL, r
     assert r["residual_off_share"] <= RESIDUAL_OFF, r
     assert r["numels_ok"], r
     assert r["split_leaves"] >= 3, r
+
+
+@pytest.mark.parametrize("key", STEP_KEYS + TP_KEYS)
+def test_mesh_step_matches_one_device(mesh_runs, key):
+    """One mesh step against the one-device port step (repro's GSPMD step
+    for ``repro/``) from the same state and batch; moe routes every layer
+    as the one-device step does."""
+    seen = _case(mesh_runs, key)
+    for r in seen:
+        assert r == seen[0], (key, seen)     # the ranks agree exactly
+    _hold_step(seen[0])
+    if "/moe" in key:
+        assert seen[0]["routes_equal"] is True, seen[0]
+
+
+@pytest.mark.parametrize("key", TP_KEYS)
+def test_mesh_step_matches_repro(mesh_runs, key):
+    """The same mesh step against repro's GSPMD step on a mesh of its shape
+    (4 forced CPU devices), from the same state and batch."""
+    _hold_step(_case(mesh_runs, key)[0]["repro"])
+
+
+@pytest.mark.parametrize("key", [f"codec/{d}x{m}/{f}"
+                                 for (d, m), f in TP_CASES])
+def test_int8_codec_on_model_split_leaves_equals_one_device(mesh_runs, key):
+    """The int8 codec over each family's slices (experts, ssm_inner and
+    ssm_heads among them) codes and carries as the one-device codec."""
+    assert all(r is True for r in _case(mesh_runs, key)), key
+
+
+@pytest.mark.parametrize("name", TP_FAMILIES)
+def test_trainer_splits_every_family_over_model(mesh_runs, name):
+    """train() of every family on a (2, 2) mesh (a model extent of 2;
+    PR 24's trainer refused it for any family but dense): one step, whose
+    loss is the one-device trainer's."""
+    want = mesh_runs["one_tp"][name]
+    for r in mesh_runs["ranks"]:
+        got = r[f"train/{name}"]
+        assert got["finished"] == 1, got
+        assert got["loss"] == pytest.approx(want["loss"], rel=LOSS_RTOL)
 
 
 def test_model_param_axes_equal_repros_for_every_config():
@@ -724,6 +988,19 @@ def test_mesh_checkpoint_bytes_equal_one_device(mesh_runs):
     for k in ("mesh", "mesh_async", "dtensor"):
         assert ck[k] == ck["one"], k
     assert all(r["checkpoint"]["restored_equal"]
+               for r in mesh_runs["ranks"])
+
+
+@pytest.mark.parametrize("name", ["moe", "hybrid"])
+def test_model_split_checkpoint_bytes_equal_one_device(mesh_runs, name):
+    """The expert, ssm_inner and ssm_heads slices of a (1, 4) mesh (and
+    hybrid's shared block's) saved as one device saves them: every file
+    equal byte for byte."""
+    ck = mesh_runs["ranks"][0][f"checkpoint/{name}"]
+    assert ck["one"] and "manifest.json" in ck["one"]
+    for k in ("mesh", "mesh_async", "dtensor"):
+        assert ck[k] == ck["one"], k
+    assert all(r[f"checkpoint/{name}"]["restored_equal"]
                for r in mesh_runs["ranks"])
 
 
@@ -786,13 +1063,12 @@ def test_degraded_on_one_rank_switches_every_rank(mesh_runs):
         [HEALTHY] * 2 + ["degraded"] * 3
 
 
-@pytest.mark.parametrize("key", ["outside", "tp_family"])
+@pytest.mark.parametrize("key", ["outside"])
 def test_train_refuses_on_a_real_group(mesh_runs, key):
-    """On the 4 gloo ranks: a (1, 2) mesh leaves 2 ranks outside it, and
-    moe asks for tensor parallelism; each rank raises NotImplementedError
-    before it builds any state (no checkpoint directory)."""
-    want = {"outside": "2 of the group's 4 ranks lie outside the (1, 2)",
-            "tp_family": "tensor parallelism over 'model' (2) is the dense"}
+    """On the 4 gloo ranks: a (1, 2) mesh leaves 2 ranks outside it; each
+    rank raises NotImplementedError before it builds any state (no
+    checkpoint directory)."""
+    want = {"outside": "2 of the group's 4 ranks lie outside the (1, 2)"}
     for r in mesh_runs["ranks"]:
         assert want[key] in r[f"refuse/{key}"], r[f"refuse/{key}"]
         assert r[f"refuse/{key}/state"] is False
@@ -826,6 +1102,31 @@ def test_one_by_one_mesh_is_bit_identical(one_rank_group, codec, ga):
     assert float(m0["loss"]) == float(m1["loss"])
     assert float(m0["gnorm"]) == float(m1["gnorm"])
     for a, b in zip(tree_leaves((p0, o0, c0)), tree_leaves((p1, o1, c1))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", TP_FAMILIES)
+def test_one_by_one_mesh_is_bit_identical_for_every_family(one_rank_group,
+                                                           name):
+    """Every family but dense: the (1, 1) mesh's step equals the
+    one-device step bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+    arch, width = CONFIGS[name]
+    cfg = _cfg(arch, **width)
+    run, ocfg, ccfg = _run(arch), topt.OptConfig(lr=LR), CompressConfig()
+    start = _state_after_one_step(cfg, run, ocfg, ccfg)
+    outs = []
+    for mesh in (None, make_host_mesh(1, 1, "cpu")):
+        p, o, c = (_clone(t) for t in start)
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        p, o, c, m = T.make_train_step(cfg, ocfg, run, ccfg, mesh)(
+            p, o, c, _batch(cfg, 1), 1)
+        outs.append((m, p, o))
+    (m0, p0, o0), (m1, p1, o1) = outs
+    assert float(m0["loss"]) == float(m1["loss"])
+    assert float(m0["gnorm"]) == float(m1["gnorm"])
+    for a, b in zip(tree_leaves((p0, o0)), tree_leaves((p1, o1))):
         assert torch.equal(a, b)
 
 
