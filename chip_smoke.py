@@ -177,6 +177,17 @@ Phases (any failure exits non-zero; nothing is caught):
      largest |value| of the one-device run's, moe routing every token of
      every layer and step alike; flash launches counted over both ranks
      ("serve tp");
+  2n. the dry run against the card (`repro_torch.launch.dryrun`, fakes on
+     "cuda"): 2e's yi-6b prefill and a decode step, one micro-batch of
+     2j's training (2 x 4,096 tokens, forward + backward) and 2c's
+     sharded pair step, each counted on fake tensors (not a byte
+     allocated on the card) and then run on the card: the predicted peak
+     above the step's arguments within 5 % or 0.25 GiB of
+     max_memory_allocated's, and the roofline time at most 1.05 x the
+     step's measured device time; then, in a process of its own, the
+     per-rank peaks of the GRCh38 genpair step at (1, 1) and (1, 4),
+     yi-6b train_4k at (4, 1), llama4-scout prefill_32k and decode_32k and
+     kimi-k2 decode_32k at (1, 4), printed against the card's memory;
   5. the card line, the `kernels` JSON line and the final `ok` line.
 
 Exits 1 without a result when no CUDA device is available.
@@ -378,12 +389,39 @@ SERVE_TP_RTOL = 1e-5
 SERVE_TP_FLOOR_FACTOR = 2.0
 SERVE_TP_TIMEOUT = 600       # seconds for the two ranks' processes
 
-# H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (data sheet), and
-# non-tensor int32 at 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock =
-# 16.7 Tops/s (Hopper architecture white paper: 64 INT32 units per SM).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor cores (data sheet)
+# Phase 2n: the dry run against the card.  `repro_torch.launch.dryrun`
+# runs a step on fake tensors on "cuda" (nothing allocated, nothing
+# launched) and counts its peak live bytes and its work; the same call
+# then runs on the card.  A prediction holds where its peak above the
+# step's arguments lies within DRYRUN_MEM_RTOL of the measured one (the
+# allocator's max_memory_allocated over the call, less what was allocated
+# before it), or within DRYRUN_MEM_ATOL where that is larger (cuBLAS and
+# library workspaces sit in the caching allocator but not in a fake run:
+# on an H100 the card read +512 bytes, 0, +5,701,632 (0.024 %) and
+# +1,048,576 (one op's workspace) over the four predictions below), and
+# where its roofline time (the largest of its compute, memory and
+# collective terms at the H100's peaks) is at most DRYRUN_ROOFLINE_SLACK
+# x the step's measured device time (a roofline above the device time
+# means a count is wrong).  The calls: 2e's yi-6b prefill and a decode
+# step at the end of its cache, one micro-batch of 2j's stablelm-3b
+# training (TRAIN_MICRO sequences, forward + backward, traced at 1 and 2
+# layers and extrapolated to 32), and 2c's sharded pair step (the
+# session's own index shapes).  Multi-rank meshes run in a process of
+# their own (this one has held NCCL groups), whose per-rank peaks are
+# printed against the card's memory.  Last, the host cost of the launch
+# path: `kernels._cuda.pointers` (a launch's tensors to pointers, a fake
+# tensor detected) against bare data_ptr() calls, over each kernel's
+# arguments, LAUNCH_HOST_REPS times.
+DRYRUN_MEM_RTOL = 0.01
+DRYRUN_MEM_ATOL = 16 * 2**20
+DRYRUN_ROOFLINE_SLACK = 1.05
+DRYRUN_BUDGET_S = 120
+TRAIN_MICRO = 2
+LAUNCH_HOST_REPS = 10_000
+DRYRUN_CELLS = (
+    "genpair:serve_256k:1x1", "genpair:serve_256k:1x4",
+    "yi-6b:train_4k:4x1", "llama4-scout-17b-a16e:prefill_32k:1x4",
+    "llama4-scout-17b-a16e:decode_32k:1x4", "kimi-k2-1t-a32b:decode_32k:1x4")
 
 REPLACES = {
     "seed_buckets": "src/repro/kernels/pair_frontend/kernel.py:118",
@@ -421,12 +459,13 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S
-          ) -> tuple[float, str]:
-    """Least time in ms for the work, and which of the two bounds it."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / ops_per_s * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+def bound(work) -> tuple[float, str]:
+    """Least time in ms for a launch's `Work` (its kernel's cost function,
+    `kernels/*/ops.py`) at the H100 peaks of `repro_torch.roofline`, and
+    which of the two bounds it."""
+    from repro_torch.roofline import bound_s
+    t, by = bound_s(work.bytes, work.ops, work.unit)
+    return t * 1e3, by
 
 
 def _tensors(tree):
@@ -832,6 +871,7 @@ def train_full_width(seed: int, out_dir: Path) -> dict:
     from repro_torch.models.model import model_init_params
     from repro_torch.optim import adamw
     from repro_torch.optim.compress import CompressConfig, init_state
+    from repro_torch.roofline import PEAK_FLOPS
 
     dev = torch.device("cuda")
     cfg = get_config(TRAIN_ARCH)
@@ -889,7 +929,7 @@ def train_full_width(seed: int, out_dir: Path) -> dict:
     rec["ms_per_step"] = sum(timed) / len(timed)
     rec["tokens_per_s"] = tokens / (rec["ms_per_step"] / 1e3)
     rec["mfu_6n"] = 6 * n_params * tokens / (rec["ms_per_step"] / 1e3) \
-        / BF16_FLOPS_PER_S
+        / PEAK_FLOPS
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[2j] {TRAIN_ARCH} full width and depth ({n_params:,} parameters, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_ACCUM} "
@@ -1714,6 +1754,250 @@ def serve_tp(out_dir: Path) -> tuple[dict, dict]:
     return recs, launches
 
 
+def _peak_above(fn):
+    """``fn()``'s result and the caching allocator's peak over the call less
+    what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _hold_dry(name: str, dry: dict, above: int, device_ms: float) -> dict:
+    """Phase 2n's gates for one step: the dry run's peak above the step's
+    arguments against the card's, its roofline time against the step's
+    measured device time."""
+    from repro_torch.roofline import roofline
+    mem, c = dry["memory"], dry["costs"]
+    pred = mem["peak_bytes"] - mem["argument_size_in_bytes"]
+    tol = max(DRYRUN_MEM_RTOL * above, DRYRUN_MEM_ATOL)
+    rf = roofline(c["flops_by_dtype"], c["int_ops"], c["bytes"], c["coll"],
+                  c["coll_s"], 1, 0.0)
+    rl_ms = rf.time_s * 1e3
+    rec = {"predicted_above_bytes": pred, "measured_above_bytes": above,
+           "tolerance_bytes": tol, "argument_bytes": mem["argument_bytes"],
+           "memory": mem, "roofline": rf.as_dict(), "roofline_ms": rl_ms,
+           "device_ms": device_ms, "roofline_share": rl_ms / device_ms,
+           "kernels": c["kernels"], "traced": dry.get("traced")}
+    print(f"[2n] {name}: peak above its arguments predicted "
+          f"{pred / 2**30:.3f} GiB, measured {above / 2**30:.3f} GiB "
+          f"(tolerance {tol / 2**30:.3f}); roofline {rl_ms:.3f} ms "
+          f"({rf.bottleneck}: compute {rf.compute_s * 1e3:.3f}, memory "
+          f"{rf.memory_s * 1e3:.3f}) = {rl_ms / device_ms:.3f} of the "
+          f"measured {device_ms:.3f} ms of device time")
+    if abs(pred - above) > tol:
+        raise RuntimeError(f"{name}: the dry run's peak {pred} bytes is off "
+                           f"the card's {above} by more than {tol:.0f}")
+    if rl_ms > DRYRUN_ROOFLINE_SLACK * device_ms:
+        raise RuntimeError(f"{name}: a roofline of {rl_ms:.3f} ms over "
+                           f"{device_ms:.3f} ms of device time: a count is "
+                           f"wrong")
+    return rec
+
+
+def _launch_host_us(dev) -> dict:
+    """Each kernel's launch arguments (a CUDA tensor for each pointer, 1
+    for each value; the stream left out) through `_cuda.pointers`, and
+    through bare data_ptr() calls, the path before it: host µs a launch."""
+    import torch
+
+    from repro_torch.kernels import _cuda
+    t = torch.zeros(1, device=dev)
+    out = {}
+    for name, k in sorted(_cuda.KERNELS.items()):
+        args = [t if a is _cuda.PTR else 1 for a in k.argtypes[:-1]]
+
+        def bare(args=args):
+            return [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+
+        us = {}
+        for key, fn in (("pointers", _cuda.pointers), ("data_ptr", bare)):
+            t0 = time.perf_counter()
+            for _ in range(LAUNCH_HOST_REPS):
+                fn(args)
+            us[key] = (time.perf_counter() - t0) / LAUNCH_HOST_REPS * 1e6
+        out[name] = {"args": len(args), "pointers_us": us["pointers"],
+                     "data_ptr_us": us["data_ptr"]}
+        print(f"[2n] launch path of {name} ({len(args)} arguments): "
+              f"pointers {us['pointers']:.3f} µs, bare data_ptr "
+              f"{us['data_ptr']:.3f} µs a launch (host)")
+    return out
+
+
+def _micro_grads(params, batch, cfg):
+    """One training micro-batch as `make_train_step` runs it: the loss and
+    every parameter's gradient."""
+    import torch
+
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import tree_leaves
+    loss, _ = loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def dryrun_against_card(record: dict, pair: dict, out_dir: Path) -> dict:
+    """Phase 2n (see DRYRUN_MEM_RTOL): the dry runs of 2e's prefill and
+    decode, 2j's micro-batch and 2c's pair step held against the card,
+    and the multi-rank cells' per-rank peaks from a process of their
+    own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.genpairx_step import GenPairScale
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import (
+        decode_step, make_smoke_batch, model_init_params, prefill_step)
+    from repro_torch.models.transformer import init_cache
+
+    t0 = time.time()
+    cells_dir = out_dir / "dryrun_torch"
+    shutil.rmtree(cells_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(
+        Path(__file__).resolve().parent / "src")}
+    cells = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+         "cuda", "--no-exact", "--out", str(cells_dir),
+         *itertools.chain.from_iterable(("--cell", c) for c in
+                                        DRYRUN_CELLS)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    dev = torch.device("cuda")
+    yi = dataclasses.replace(get_config("yi-6b"), use_flash_kernel=True)
+    st = get_config(TRAIN_ARCH)
+
+    def yi_build(decode: bool):
+        def build():
+            params = dryrun.fake_params(yi, None, None, dev, False)
+            if not decode:
+                tokens = torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int64,
+                                     device=dev)
+                return (lambda: prefill_step(params, {"tokens": tokens}, yi,
+                                             LM_MAX_LEN),
+                        {"params": params, "batch": tokens})
+            tok = torch.empty((LM_BATCH, 1), dtype=torch.int64, device=dev)
+            cache = init_cache(yi, LM_BATCH, LM_MAX_LEN, torch.bfloat16,
+                               dev)._replace(length=LM_MAX_LEN - 1)
+            return (lambda: decode_step(params, cache, tok, yi),
+                    {"params": params, "cache": cache, "batch": tok})
+        return build
+
+    def micro_build(cfg):
+        def build():
+            params = dryrun.fake_params(cfg, None, None, dev, True)
+            tok = torch.empty((TRAIN_MICRO, TRAIN_SEQ), dtype=torch.int32,
+                              device=dev)
+            batch = {"tokens": tok, "labels": tok}
+            return (lambda: _micro_grads(params, batch, cfg),
+                    {"params": params, "batch": batch})
+        return build
+
+    # the dry runs: fakes on "cuda", and not a byte allocated on the card
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t_dry = time.time()
+    dry = {"prefill": dryrun.trace(yi_build(False), "cuda"),
+           "decode": dryrun.trace(yi_build(True), "cuda"),
+           "train_micro": dryrun.trace_depth(micro_build, st, "cuda")}
+    scale = GenPairScale(genome_len=pair["genome_len"],
+                         table_bits=pair["table_bits"],
+                         n_locations=pair["n_locations"],
+                         global_batch=pair["batch"], read_len=pair["read_len"])
+    with dryrun.fake_world(1):
+        dry["pair_step"] = dryrun.trace(dryrun.genpair_step(
+            scale, pair["pipe"], pair["sm_cfg"], (1, 1), "cuda"), "cuda")
+    torch.cuda.synchronize()
+    dry_s = time.time() - t_dry
+    if torch.cuda.memory_allocated() != held:
+        raise RuntimeError(f"the dry runs allocated "
+                           f"{torch.cuda.memory_allocated() - held} bytes on "
+                           f"the card")
+    print(f"[2n] dry runs of four steps on fake tensors in {dry_s:.1f} s; "
+          f"{held} bytes allocated before and after them")
+
+    # the same calls on the card
+    rec = {"dry_s": dry_s, "allocated_unchanged": True}
+    lm = record["lm"]
+    params = model_init_params(
+        yi, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    tokens = make_smoke_batch(yi, LM_BATCH, LM_PROMPT, seed=SEED + 30,
+                              device=dev)["tokens"]
+    (logits, cache), above = _peak_above(
+        lambda: prefill_step(params, {"tokens": tokens}, yi, LM_MAX_LEN))
+    rec["prefill"] = _hold_dry("yi-6b prefill 8 x 2,048", dry["prefill"],
+                               above, lm["profile"]["device_busy_ms"])
+    cache = cache._replace(length=LM_MAX_LEN - 1)
+    tok = logits.argmax(-1)[:, None]
+    del logits
+    _, above = _peak_above(lambda: decode_step(params, cache, tok, yi))
+    rec["decode"] = _hold_dry("yi-6b decode step at position 2,079",
+                              dry["decode"], above,
+                              lm["decode_profile"]["device_busy_ms"])
+    del params, tokens, cache, tok, _
+    torch.cuda.empty_cache()
+
+    params = model_init_params(
+        st, torch.Generator(device=dev).manual_seed(SEED + 90), device=dev)
+    for p in _tensors(params):
+        p.requires_grad_(True)
+    data = DataConfig(vocab_size=st.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED + 90)
+    batch = {k: v[:TRAIN_MICRO] for k, v in
+             batch_for_step(data, st, 0, dev).items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (loss, grads), above = _peak_above(
+            lambda: _micro_grads(params, batch, st))
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not math.isfinite(float(loss)):
+        raise RuntimeError(f"the micro-batch's loss is {float(loss)}")
+    rec["train_micro"] = _hold_dry(
+        f"{TRAIN_ARCH} micro-batch {TRAIN_MICRO} x {TRAIN_SEQ} (forward + "
+        f"backward)", dry["train_micro"], above, busy_ms)
+    del params, batch, loss, grads, prof
+    torch.cuda.empty_cache()
+
+    rec["pair_step"] = _hold_dry(
+        f"2c's sharded pair step ({pair['batch']} pairs)", dry["pair_step"],
+        pair["peak_above_bytes"], pair["device_busy_ms"])
+
+    # the multi-rank cells, from their own process
+    out, _ = cells.communicate(timeout=DRYRUN_BUDGET_S)
+    (out_dir / "dryrun_cells.log").write_text(out)
+    if cells.returncode != 0:
+        raise RuntimeError(f"the dry run's cells exited {cells.returncode}:"
+                           f"\n{out[-3000:]}")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    rec["cells"] = {}
+    for c in DRYRUN_CELLS:
+        arch, shape, mesh = c.split(":")
+        art = json.loads((cells_dir / f"{arch}__{shape}__mesh_{mesh}.json")
+                         .read_text())
+        peak = art["memory"]["total_nonalias_bytes"]
+        rl = art["roofline"]
+        rec["cells"][c] = {"per_rank_peak_bytes": peak,
+                           "argument_bytes": art["memory"]["argument_bytes"],
+                           "fits": peak <= card_bytes, "roofline": rl}
+        print(f"[2n] {arch} {shape} on a ({mesh.replace('x', ', ')}) mesh: "
+              f"a rank peaks at {peak / 2**30:.2f} GiB against the card's "
+              f"{card_bytes / 2**30:.2f} ("
+              f"{'fits' if peak <= card_bytes else 'does not fit'}); "
+              f"roofline {rl['bottleneck']}, compute {rl['compute_s']:.4g} "
+              f"s, memory {rl['memory_s']:.4g} s, collective "
+              f"{rl['collective_s']:.4g} s (counts from shapes)")
+    rec["launch_host_us"] = _launch_host_us(dev)
+    rec["seconds"] = time.time() - t0
+    print(f"[2n] {rec['seconds']:.1f} s (budget {DRYRUN_BUDGET_S})")
+    return rec
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1743,20 +2027,27 @@ def main() -> int:
     from repro_torch.engine import ExecutionConfig, Mapper
     from repro_torch.kernels import _cuda
     from repro_torch.kernels._util import kernel_reference, lane_slots
-    from repro_torch.kernels.banded_sw.ops import banded_sw
-    from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+    from repro_torch.kernels.banded_sw.ops import banded_sw, banded_sw_cost
+    from repro_torch.kernels.candidate_align.ops import (
+        candidate_align_cost, candidate_pair_align)
     from repro_torch.kernels.candidate_align.ref import gather_windows
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.light_align.ops import light_align
-    from repro_torch.kernels.location_vote.ops import location_vote
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_cost)
+    from repro_torch.kernels.light_align.ops import (
+        light_align, light_align_cost)
+    from repro_torch.kernels.location_vote.ops import (
+        location_vote, location_vote_cost)
     from repro_torch.kernels.pair_frontend.ops import (
-        frontend_from_buckets, frontend_merge_filter, seed_buckets,
+        frontend_from_buckets, frontend_merge_filter, merge_filter_cost,
+        pair_frontend_cost, seed_buckets, seed_buckets_cost,
         segment_pair_frontend)
     from repro_torch.kernels.pair_frontend.ref import (
         frontend_from_buckets_ref, merge_filter_ref, seed_buckets_ref)
-    from repro_torch.kernels.residual_dp.ops import residual_pair_dp
-    from repro_torch.kernels.seed_gather.ops import seed_gather
-    from repro_torch.kernels.xxhash.ops import xxhash32
+    from repro_torch.kernels.residual_dp.ops import (
+        residual_dp_cost, residual_pair_dp)
+    from repro_torch.kernels.seed_gather.ops import (
+        seed_gather, seed_gather_cost)
+    from repro_torch.kernels.xxhash.ops import xxhash32, xxhash32_cost
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import (
         decode_step, make_smoke_batch, model_init_params, prefill_step)
@@ -1992,6 +2283,18 @@ def main() -> int:
     record["mesh"] = {"launches": mesh_launches, **mesh_records}
     profile_step(lambda: smapper.map(r1_dev, r2_dev), BATCH, "pairs",
                  "sharded_step", "[2c]", record, out_dir)
+    # the step's peak above what it is handed, and the shapes phase 2n's
+    # dry run of the same step takes
+    _, pair_above = _peak_above(lambda: smapper.map(r1_dev, r2_dev))
+    record["sharded_step"]["peak_above_bytes"] = pair_above
+    pair_dry = {"genome_len": REF_LEN, "table_bits": TABLE_BITS,
+                "n_locations": smapper.index.locations.shape[0],
+                "batch": BATCH, "read_len": pipe.read_len,
+                "pipe": smapper.pipe_cfg, "sm_cfg": smapper.index.config,
+                "peak_above_bytes": pair_above,
+                "device_busy_ms": record["sharded_step"]["device_busy_ms"]}
+    print(f"[2c] sharded step's peak above its inputs: "
+          f"{pair_above / 2**30:.3f} GiB")
     # the merge_filter inputs of that step (phase 3), through the real
     # lookup and all_reduce; and the all_reduce alone, timed
     r2_fwd_dev = revcomp(r2_dev).contiguous()
@@ -2297,9 +2600,10 @@ def main() -> int:
     kernels = {}
     timed_runs = {}     # each kernel's timed case, read again after 2g
 
-    def compare(name, run_kernel, run_plain, n_bytes, n_ops, timed=True,
-                iters=20, library=None, tol=0, ops_per_s=INT32_OPS_PER_S,
-                case=None):
+    def compare(name, run_kernel, run_plain, work=None, timed=True,
+                iters=20, library=None, tol=0, case=None):
+        """``work``: the timed case's `Work` (its kernel's cost function
+        on this launch's shapes and data) for the bound."""
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -2328,9 +2632,8 @@ def main() -> int:
             entry["device_ms"] = device_ms(run_kernel, name)
             timed_runs[name] = run_kernel
             entry["plain_ms"] = time_ms(run_plain, 3, warmup=1)
-            entry["bound_ms"], entry["bound_by"] = bound(n_bytes, n_ops,
-                                                         ops_per_s)
-            entry["bound_bytes"], entry["bound_ops"] = n_bytes, n_ops
+            entry["bound_ms"], entry["bound_by"] = bound(work)
+            entry["bound_bytes"], entry["bound_ops"] = work.bytes, work.ops
             if library is not None:
                 entry["library_ms"] = time_ms(library, iters)
         print(f"[3] {name}{f' ({case})' if case else ''}: max |kernel - "
@@ -2341,8 +2644,7 @@ def main() -> int:
             lambda: (seed_buckets(r1, r2, pipe.seed_len, S, hs, T),),
             lambda: (seed_buckets_ref(torch.cat([r1, r2]), pipe.seed_len, S,
                                       hs, T),),
-            n_bytes=2 * B * R + 2 * B * S * 4,
-            n_ops=2 * B * S * (2 * pipe.seed_len + 40))
+            work=seed_buckets_cost(B, R, S, pipe.seed_len))
     # odd R (tiles start off a word), codes 0-255 (a code > 3 carries into
     # the next base), 1,000 rows (not a multiple of the 64-row tile),
     # mate 1 starting 5 bytes past an aligned address
@@ -2355,7 +2657,7 @@ def main() -> int:
             lambda: (seed_buckets(o1, o2, pipe.seed_len, S, hs, T),),
             lambda: (seed_buckets_ref(torch.cat([o1, o2]), pipe.seed_len, S,
                                       hs, T),),
-            0, 0, timed=False, case="R 151, codes 0-255, B 1,000")
+            timed=False, case="R 151, codes 0-255, B 1,000")
     del odd, o1, o2
     # the wrapper's device time with the reads cold: the calls rotate over
     # 4 copies of the batch (79 MB, past the 50 MB L2)
@@ -2369,26 +2671,15 @@ def main() -> int:
           f"time (reads cold)")
     del copies, turn
 
-    # kernel 2: row gather + stable sort + Δ filter + compaction.  The
-    # function's own work: each mate's M row slots scanned, its h valid
-    # starts sorted (2 h log2 h), a searchsorted of mate 1's into mate 2's
-    # (2 h1 log2 h2), and O(h1) probing, dedup and compaction.
-    h1 = fe.n_hits1.double()
-    h2 = fe.n_hits2.double()
-
-    def nlogn(h, n):
-        return h * torch.log2(n.clamp(min=2))
-
-    fe_ops = 2 * B * M + float(
-        (2 * nlogn(h1, h1) + 2 * nlogn(h2, h2) + 2 * nlogn(h1, h2)
-         + 12 * h1).sum())
+    # kernel 2: row gather + stable sort + Δ filter + compaction, its work
+    # counted over each pair's valid hits (pair_frontend_cost)
     compare("pair_frontend",
             lambda: frontend_from_buckets(rows, buckets, offs, pipe.delta, C),
             lambda: frontend_from_buckets_ref(rows, buckets[:B], buckets[B:],
                                               offs_t, pipe.delta, C),
-            n_bytes=2 * B * S * 4 + 2 * B * M * 4 + B * (2 * C + 3) * 4,
-            n_ops=fe_ops)
-    record["frontend_hits_per_mate"] = float((h1 + h2).mean() / 2)
+            work=pair_frontend_cost(B, S, K, C, fe.n_hits1, fe.n_hits2))
+    record["frontend_hits_per_mate"] = float(
+        (fe.n_hits1 + fe.n_hits2).double().mean() / 2)
     # every row slot valid (h = M: the sort and the probe at their
     # largest), from a 2^24-row table of locations in [0, 2^16), so many
     # starts lie within Δ of a partner; checked, and timed apart
@@ -2402,7 +2693,7 @@ def main() -> int:
             lambda: frontend_from_buckets_ref(dense_rows, dense_ids[:B],
                                               dense_ids[B:], offs_t,
                                               pipe.delta, C),
-            0, 0, timed=False, case="every slot valid")
+            timed=False, case="every slot valid")
     kernels["pair_frontend"]["dense_ms"] = time_ms(
         lambda: frontend_from_buckets(dense_rows, dense_ids, offs,
                                       pipe.delta, C), 20)
@@ -2412,8 +2703,8 @@ def main() -> int:
     # kernel 3: candidate alignment, both flavors, prescreen 0 and 4.  The
     # function aligns each valid candidate of both mates (one window at 0
     # for a pair without any) and, with a prescreen, takes the zero-shift
-    # Hamming distance of every valid candidate first.
-    W = R + 2 * E
+    # Hamming distance of every valid candidate first
+    # (candidate_align_cost).
     n_cand = fe.n.long()
     for packed in (True, False):
         for prescreen in (0, 4):
@@ -2421,7 +2712,6 @@ def main() -> int:
             if prescreen:
                 aligned = aligned.clamp(max=prescreen)
             n_align = 2 * int(aligned.sum())
-            win_bytes = (W // 16 + 2) * 4 if packed else W
             ref_in, kref_in = (words, kref) if packed else (bases, bases_kref)
             compare(
                 "candidate_align",
@@ -2432,10 +2722,8 @@ def main() -> int:
                 lambda p=packed, q=prescreen, x=ref_in: candidate_pair_align(
                     x, r1, r2, fe.pos1, fe.pos2, E, prescreen_top=q,
                     packed_ref=p, backend="torch", **light),
-                n_bytes=2 * B * R + 2 * B * C * 4 + n_align * win_bytes
-                + 12 * B * 4,
-                n_ops=n_align * R * (2 * E + 1) * 6
-                + (2 * int(n_cand.sum()) * R * 2 if prescreen else 0),
+                work=candidate_align_cost(B, R, C, E, packed, prescreen,
+                                          n_cand),
                 timed=packed and prescreen == 0)
             ran = torch.zeros(1, dtype=torch.int32, device=dev)
             candidate_pair_align(ref_in, r1, r2, fe.pos1, fe.pos2, E,
@@ -2444,10 +2732,12 @@ def main() -> int:
                                  **light)
             record.setdefault("candidate_align_alignments", []).append(
                 {"packed": packed, "prescreen": prescreen,
-                 "kernel": int(ran), "bound": n_align})
+                 "kernel": int(ran), "bound": n_align,
+                 "valid": int(n_cand.sum())})
             print(f"[3] candidate_align (packed {packed}, prescreen "
                   f"{prescreen}): the kernel ran {int(ran)} alignments; the "
-                  f"bound counts {n_align}")
+                  f"bound counts {n_align} ({int(n_cand.sum())} valid "
+                  f"candidates over {B} pairs)")
     # every slot of every pair valid (the invalid ones of the batch moved
     # to random starts): nothing to compact, the staging alone; checked,
     # and timed apart from the main path's case
@@ -2462,7 +2752,7 @@ def main() -> int:
                                          backend="cuda", kref=kref, **light),
             lambda: candidate_pair_align(*dense_args, packed_ref=True,
                                          backend="torch", **light),
-            0, 0, timed=False, case="every slot valid")
+            timed=False, case="every slot valid")
     kernels["candidate_align"]["dense_ms"] = time_ms(
         lambda: candidate_pair_align(*dense_args, packed_ref=True,
                                      backend="cuda", kref=kref, **light), 10)
@@ -2483,8 +2773,6 @@ def main() -> int:
     Wd = R + 2 * pipe.dp_pad
     for packed, band in ((True, pipe.band()), (False, pipe.band()),
                          (True, Wd)):
-        cols = 2 * band + 1 if band < Wd else Wd + 1
-        win_bytes = (Wd // 16 + 2) * 4 if packed else Wd
         ref_in, kref_in = (words, kref) if packed else (bases, bases_kref)
         compare(
             "residual_dp",
@@ -2494,8 +2782,7 @@ def main() -> int:
             lambda p=packed, bd=band, x=ref_in: residual_pair_dp(
                 x, *dp_in, band=bd, scoring=pipe.scoring, packed_ref=p,
                 backend="torch"),
-            n_bytes=n_items * (R + win_bytes) + cap * (2 * 4 + 2 + 4 * 4),
-            n_ops=n_items * R * cols * 14,
+            work=residual_dp_cost(cap, R, Wd, band, packed, n_items),
             timed=packed and band == pipe.band(), iters=10)
     record["residual_buffer"] = {"rows": cap, "items": n_items}
     print(f"[3] residual buffer: {cap} rows, {n_items} live items")
@@ -2510,7 +2797,7 @@ def main() -> int:
             lambda: residual_pair_dp(words, *dense_dp, band=pipe.band(),
                                      scoring=pipe.scoring, packed_ref=True,
                                      backend="torch"),
-            0, 0, timed=False, case="every slot needed")
+            timed=False, case="every slot needed")
     kernels["residual_dp"]["dense_ms"] = time_ms(
         lambda: residual_pair_dp(words, *dense_dp, band=pipe.band(),
                                  scoring=pipe.scoring, packed_ref=True,
@@ -2534,8 +2821,7 @@ def main() -> int:
     compare("location_vote",
             lambda: location_vote(diag, lr.vote_bin, backend="cuda"),
             lambda: location_vote(diag, lr.vote_bin, backend="torch"),
-            n_bytes=4 * Bl * Ml + 8 * Bl,
-            n_ops=Bl * 2 * Ml * float(np.log2(Ml)))
+            work=location_vote_cost(Bl, Ml))
     g = torch.Generator(device=dev).manual_seed(SEED)
     synth = torch.randint(-400, 4000, (4096, Ml), generator=g, device=dev,
                           dtype=torch.int32)
@@ -2551,7 +2837,7 @@ def main() -> int:
     compare("location_vote",
             lambda: location_vote(synth, lr.vote_bin, backend="cuda"),
             lambda: location_vote(synth, lr.vote_bin, backend="torch"),
-            0, 0, timed=False, case="4,096 synthetic rows, 60 % valid")
+            timed=False, case="4,096 synthetic rows, 60 % valid")
     kernels["location_vote"]["dense_ms"] = time_ms(
         lambda: location_vote(synth, lr.vote_bin, backend="cuda"), 20)
     kernels["location_vote"]["dense_device_ms"] = device_ms(
@@ -2573,7 +2859,7 @@ def main() -> int:
     compare("location_vote",
             lambda: location_vote(off, lr.vote_bin, backend="cuda"),
             lambda: location_vote(off, lr.vote_bin, backend="torch"),
-            0, 0, timed=False, case="lane rows 4 bytes off")
+            timed=False, case="lane rows 4 bytes off")
     kernels["location_vote"]["unaligned_device_ms"] = device_ms(
         lambda: location_vote(off, lr.vote_bin, backend="cuda"),
         "location_vote")
@@ -2597,8 +2883,7 @@ def main() -> int:
                                                    backend="cuda"),
                     lambda x=rows_s: location_vote(x, lr.vote_bin,
                                                    backend="torch"),
-                    0, 0, timed=False,
-                    case=f"M {m_s}, {n_s} rows, 60 % valid")
+                    timed=False, case=f"M {m_s}, {n_s} rows, 60 % valid")
     vote = location_vote(diag, lr.vote_bin, backend="cuda")
     syn = location_vote(synth, lr.vote_bin, backend="cuda")
     if syn.win_bin[1:3].tolist() != [1, -1] or int(syn.votes[0]) != 0:
@@ -2614,15 +2899,13 @@ def main() -> int:
                            lr.segment_stride)[:, 0].contiguous()
     Ra, Wa = anchor.shape[1], win.shape[1]
     for band in (lr.band(), 16, Wa):
-        cols = 2 * band + 1 if band < Wa else Wa + 1
         compare(
             "banded_sw",
             lambda bd=band: banded_sw(anchor, win, lp.scoring, bd,
                                       backend="cuda"),
             lambda bd=band: banded_sw(anchor, win, lp.scoring, bd,
                                       backend="torch"),
-            n_bytes=Bl * (Ra + Wa) + 8 * Bl,
-            n_ops=Bl * Ra * cols * 14,
+            work=banded_sw_cost(Bl, Ra, Wa, band),
             timed=band == lr.band(), iters=10)
     # the frame slots per lane the wrapper took for the lane's band
     kernels["banded_sw"]["cpl"] = lane_slots(2 * lr.band() + 1)
@@ -2650,7 +2933,7 @@ def main() -> int:
                     a, b, lp.scoring, bd, backend="cuda"),
                 lambda a=r_syn, b=w_syn, bd=band_s: banded_sw(
                     a, b, lp.scoring, bd, backend="torch"),
-                0, 0, timed=False,
+                timed=False,
                 case=f"R {r_s}, W {w_s}, band {band_s}, {n_s} reads")
     del w_syn, r_syn, at, cols_at
     record["long_kernel_shapes"] = {"reads": Bl, "diag_slots": Ml,
@@ -2659,21 +2942,18 @@ def main() -> int:
           f"{Ra}-base anchors against {Wa}-base windows")
 
     # kernel 7: merge + Δ filter of the sharded plan's gathered (B, S, K)
-    # locations of the same batch.  The function's own work: the pair
-    # front end's without the row scan.  Then 4,096 synthetic rows:
+    # locations of the same batch, its work counted over each pair's
+    # valid hits (merge_filter_cost: the pair front end's without the row
+    # scan).  Then 4,096 synthetic rows:
     # all-invalid rows and mates, duplicate-heavy rows, starts near 0 and
     # locations near -2^31 (their starts wrap).
     mf_args = (mf_locs[:B], mf_locs[B:], offs, pipe.delta, C)
     mf = frontend_merge_filter(*mf_args)
-    m1 = mf.n_hits1.double()
-    m2 = mf.n_hits2.double()
     compare("merge_filter",
             lambda: frontend_merge_filter(*mf_args),
             lambda: merge_filter_ref(mf_locs[:B], mf_locs[B:], offs_t,
                                      pipe.delta, C),
-            n_bytes=2 * B * M * 4 + B * (2 * C + 3) * 4,
-            n_ops=float((2 * nlogn(m1, m1) + 2 * nlogn(m2, m2)
-                         + 2 * nlogn(m1, m2) + 12 * m1).sum()))
+            work=merge_filter_cost(B, S, K, C, mf.n_hits1, mf.n_hits2))
     if not (torch.equal(mf.pos1, fe.pos1) and torch.equal(mf.n, fe.n)):
         raise RuntimeError("merge_filter on the sharded lookup differs from "
                            "pair_frontend on the padded rows")
@@ -2694,25 +2974,25 @@ def main() -> int:
             lambda: frontend_merge_filter(syn[0], syn[1], offs, pipe.delta,
                                           C),
             lambda: merge_filter_ref(syn[0], syn[1], offs_t, pipe.delta, C),
-            0, 0, timed=False)
+            timed=False)
     dense_locs = dense_rows[dense_ids.long()]
     compare("merge_filter",
             lambda: frontend_merge_filter(dense_locs[:B], dense_locs[B:],
                                           offs, pipe.delta, C),
             lambda: merge_filter_ref(dense_locs[:B], dense_locs[B:], offs_t,
                                      pipe.delta, C),
-            0, 0, timed=False, case="every slot valid")
+            timed=False, case="every slot valid")
     del dense_rows, dense_locs
 
     # kernel 8: light_align of phase 2d's mates, then paper mode, E 0, 1
     # and 2 (the centre of each window), int32 bases and one row.  The
-    # function's own work, counted at four bases a 32-bit word: 2E+1
-    # mismatch masks (a shift's four flags take a funnel shift, xor, and,
-    # add, or, and, mul, shr, shl and or: 10 operations) and 2E gap walks
-    # (a nibble of four positions through the table, ~7), so 2.5 and
-    # 1.75 operations a base.  A byte compare a base is not the work's
-    # floor once four share an instruction; the bytes bound (each row
-    # and window read once) takes over wherever it is the larger.
+    # function's own work is counted at four bases a 32-bit word
+    # (light_align_cost): a mismatch mask's four flags take a funnel
+    # shift, xor, and, add, or, and, mul, shr, shl and or (10 operations),
+    # a gap walk's nibble of four positions ~7.  A byte compare a base is
+    # not the work's floor once four share an instruction; the bytes
+    # bound (each row and window read once) takes over wherever it is the
+    # larger.
     Nla = la_reads.shape[0]
     m = pipe.light_mode
     cases = ((E, m, torch.uint8, Nla), (E, "paper", torch.uint8, Nla),
@@ -2726,9 +3006,7 @@ def main() -> int:
         compare("light_align",
                 lambda a=args, k=kw: light_align(*a, backend="cuda", **k),
                 lambda a=args, k=kw: light_align(*a, backend="torch", **k),
-                n_bytes=Nla * (R + R + 2 * E) + Nla * 5 * 4,
-                n_ops=Nla * R * ((2 * E + 1) * 2.5 + 2 * E * 1.75),
-                timed=i == 0,
+                work=light_align_cost(Nla, R, E), timed=i == 0,
                 case=f"E {e}, {mode}, {dtype}, {n} rows")
 
     def light_align_edges():
@@ -2767,25 +3045,24 @@ def main() -> int:
                             *a, mode=md, backend="cuda"),
                         lambda a=(rd, wn, e), md=mode: light_align(
                             *a, mode=md, backend="torch"),
-                        0, 0, timed=False, case=f"{case}, {mode}")
+                        timed=False, case=f"{case}, {mode}")
 
-    # kernel 9: xxhash32 of phase 2d's seed words (each hash ~51 integer
-    # operations of xxhash.cuh, 16 bytes in and an int64 out), then one row
-    # under seeds 0, 99 and 0xFFFFFFFF
+    # kernel 9: xxhash32 of phase 2d's seed words (xxhash32_cost), then one
+    # row under seeds 0, 99 and 0xFFFFFFFF
     n_h = seed_words.shape[0]
     compare("xxhash32",
             lambda: (xxhash32(seed_words, hs, backend="cuda"),),
             lambda: (xxhash32(seed_words, hs, backend="torch"),),
-            n_bytes=n_h * (16 + 8), n_ops=n_h * 51)
+            work=xxhash32_cost(n_h))
     for seed in (0, 99, 0xFFFFFFFF):
         compare("xxhash32",
                 lambda x=seed: (xxhash32(seed_words[:1], x, backend="cuda"),),
                 lambda x=seed: (xxhash32(seed_words[:1], x,
                                          backend="torch"),),
-                0, 0, timed=False)
+                timed=False)
 
     # kernel 10: seed_gather of the padded rows at phase 2d's bucket ids
-    # (4 bytes of id, a K-wide row read and written per id), with
+    # (seed_gather_cost), with
     # torch.index_select timed beside it; then a float32 table, 30-wide
     # rows (the 4-byte copy) and ids outside the table
     if not torch.equal(torch.index_select(rows, 0, ids), gathered):
@@ -2793,7 +3070,7 @@ def main() -> int:
     compare("seed_gather",
             lambda: (seed_gather(rows, ids, backend="cuda"),),
             lambda: (seed_gather(rows, ids, backend="torch"),),
-            n_bytes=ids.numel() * (4 + 2 * K * 4), n_ops=0,
+            work=seed_gather_cost(ids.numel(), K),
             library=lambda: torch.index_select(rows, 0, ids))
     Ts = 1 << 20
     edge_ids = torch.tensor([-1, -Ts, -Ts - 1, -100, Ts - 1, Ts, 2**31 - 1,
@@ -2804,18 +3081,17 @@ def main() -> int:
         compare("seed_gather",
                 lambda t=table: (seed_gather(t, small_ids, backend="cuda"),),
                 lambda t=table: (seed_gather(t, small_ids, backend="torch"),),
-                0, 0, timed=False)
+                timed=False)
     big_edges = torch.tensor([-1, -T, -T - 1, T - 1, T, 2**31 - 1, -2**31],
                              dtype=torch.int32, device=dev)
     compare("seed_gather",
             lambda: (seed_gather(rows, big_edges, backend="cuda"),),
             lambda: (seed_gather(rows, big_edges, backend="torch"),),
-            0, 0, timed=False)
+            timed=False)
 
     # kernel 11: flash attention at yi-6b's prefill shapes (BH = 8 x 32
-    # query heads over 8 x 4 K/V heads, S 2,048, D 128, bf16, causal): 4 BH
-    # D S(S+1)/2 flops of the two products over the causal triangle, and q,
-    # o and the GQA k, v once each; SDPA timed beside it.  Then float32,
+    # query heads over 8 x 4 K/V heads, S 2,048, D 128, bf16, causal;
+    # flash_attention_cost); SDPA timed beside it.  Then float32,
     # S 2,000 (padded), causal=False, D 80 and 64, and D 112 (kimi-k2's
     # head, zero-padded to 128) in bf16 and float32.
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -2850,9 +3126,9 @@ def main() -> int:
                     *a, c, backend="cuda"),),
                 lambda a=(fq, fk, fv), c=causal: (flash_attention(
                     *a, c, backend="torch"),),
-                n_bytes=size * s * d * (2 * n_q + 2 * n_kv),
-                n_ops=4 * n_q * d * s * (s + 1) / 2,
-                ops_per_s=BF16_FLOPS_PER_S, timed=timed, library=sdpa,
+                work=flash_attention_cost(n_q, n_q // n_kv, s, d, causal,
+                                          size),
+                timed=timed, library=sdpa,
                 tol=1e-4 if dtype == torch.float32 else 3e-2, case=case)
         del fq, fk, fv
     torch.cuda.empty_cache()
@@ -3626,6 +3902,11 @@ def main() -> int:
     print(f"[2m] launches over both ranks' prefills and decodes: "
           f"{serve_tp_launches}; ranks {record['serve_tp']['ranks_s']:.1f} "
           f"s; {record['serve_tp']['seconds']:.1f} s")
+
+    # ---- 2n. the dry run against the card ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["dryrun"] = dryrun_against_card(record, pair_dry, out_dir)
 
     # ---- 5. results -----------------------------------------------------
     for name, entry in kernels.items():

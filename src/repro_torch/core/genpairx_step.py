@@ -14,9 +14,16 @@ Light Alignment and the residual DP fallback exactly as `map_pairs_impl`
 runs them (`core.pipeline.map_batch`).  Like repro's step it maps the
 global batch: each rank runs steps 1-4 on its rows of the ``data`` axis,
 and the residual DP buffer is the global batch's.
+
+At human-genome scale (GRCh38, `GenPairScale`): T = 2^30 buckets, ~3.0e9
+locations, a 2-bit packed reference of 0.75 GB on every rank, and a
+Location Table of 12 GB split over the model ranks.
+`genpair_input_specs` gives the shapes of one such step's inputs, from
+which `repro_torch.launch.dryrun` makes fake tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -35,6 +42,37 @@ from repro_torch.kernels.pair_frontend.ops import (
     seed_buckets,
 )
 from repro_torch.kernels.pair_frontend.ref import seed_buckets_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class GenPairScale:
+    """Genome-scale dimensioning of the serve step for the dry run."""
+
+    genome_len: int = 3_000_000_000
+    table_bits: int = 30
+    n_locations: int = 3_000_000_000
+    global_batch: int = 262_144     # read pairs per step
+    read_len: int = 150
+
+
+def genpair_input_specs(scale: GenPairScale, n_model_shards: int) -> dict:
+    """``{name: (shape, dtype)}`` of the serve step's inputs at ``scale``
+    with the index split over ``n_model_shards`` ranks: every shard's
+    CSR offsets and padded locations (one row a shard), the packed
+    reference words (int32 holding the 2-bit packing's bits, as the
+    port's sessions hold them) and both mates of the global batch."""
+    T = 1 << scale.table_bits
+    per = T // n_model_shards
+    nmax = scale.n_locations // n_model_shards
+    lw = scale.genome_len // 16 + 1
+    B, R = scale.global_batch, scale.read_len
+    return {
+        "offsets": ((n_model_shards, per + 1), torch.int32),
+        "locations": ((n_model_shards, nmax), torch.int32),
+        "ref_words": ((lw,), torch.int32),
+        "reads1": ((B, R), torch.uint8),
+        "reads2": ((B, R), torch.uint8),
+    }
 
 
 def make_genpair_serve_step(mesh, pipe_cfg: PipelineConfig,

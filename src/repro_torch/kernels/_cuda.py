@@ -11,10 +11,20 @@ raises with nvcc's output; nothing falls back to a plain version.
 
 Every kernel is a `Kernel` in `KERNELS`: calling it launches on the
 caller's stream, raises on a non-zero ``cudaGetLastError()`` and adds one
-to its plain-integer ``launches`` count.
+to its plain-integer ``launches`` count.  Each `Kernel` carries its cost
+function: the HBM bytes and operations of a launch as a function of its
+shapes (`Work`), the formula behind the bound of every kernel in
+``chip_smoke.py`` and the kernel's share of a dry run's counts.
+
+A launch is the one place that turns tensors into pointers.  Under
+`dry_run_launches` (`repro_torch.launch.dryrun`'s context) a launch on
+fake tensors records its `Work` and launches nothing; anywhere else a
+fake tensor that reaches a launch raises.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -23,6 +33,10 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Callable, NamedTuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -127,34 +141,107 @@ def build_log() -> str:
     return (build_dir() / "build.log").read_text()
 
 
-class Kernel:
-    """One C entry point of the library plus its launch count."""
+class Work(NamedTuple):
+    """The work of one launch: HBM bytes (each input read once, each output
+    written once) and operations of ``unit`` (a key of
+    `repro_torch.roofline.PEAKS`: "int32", "bfloat16", "float32")."""
 
-    def __init__(self, name: str, symbol: str, argtypes: tuple):
+    bytes: float
+    ops: float
+    unit: str = "int32"
+
+
+# the dry run active in this thread (context): (record(kernel name, Work),
+# whether fake tensors on any device take the kernel route), or None
+_DRY: contextvars.ContextVar[tuple[Callable, bool] | None] = \
+    contextvars.ContextVar("repro_torch_dry_run", default=None)
+
+
+@contextlib.contextmanager
+def dry_run_launches(record: Callable[[str, Work], None],
+                     route_kernels: bool = False):
+    """Within the block, and in this thread only, a launch on fake tensors
+    calls ``record(name, work)`` and launches nothing.  ``route_kernels``:
+    fake tensors on the CPU take the kernel route too (`routes_kernels`),
+    so that a dry run on the CPU counts the work the card's kernels would
+    do."""
+    token = _DRY.set((record, route_kernels))
+    try:
+        yield
+    finally:
+        _DRY.reset(token)
+
+
+def routes_kernels() -> bool:
+    """Whether this thread's dry run sends fake tensors of any device down
+    the kernel route (`kernels.backend.resolve_backend`, `check`)."""
+    dry = _DRY.get()
+    return dry is not None and dry[1]
+
+
+def pointers(args) -> list | None:
+    """A launch's C arguments: a tensor as its data pointer, None as a
+    null pointer, any other value as it is; None where a fake tensor is
+    among them.  (``type() is``: an isinstance test of FakeTensor costs
+    more than the data_ptr() call.)"""
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if type(a) is FakeTensor:
+                return None
+            a = a.data_ptr()
+        ptrs.append(a)
+    return ptrs
+
+
+class Kernel:
+    """One C entry point of the library, its launch count and its cost
+    function (``cost(*work) -> Work``)."""
+
+    def __init__(self, name: str, symbol: str, argtypes: tuple,
+                 cost: Callable[..., Work]):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.cost = cost
         self.launches = 0
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, stream: torch.Tensor, work: tuple) -> None:
+        """Launch on ``stream``'s device's current stream.  A tensor
+        argument passes as its data pointer, None as a null pointer, any
+        other value as it is (`pointers`); ``work`` are the cost
+        function's arguments."""
+        ptrs = pointers(args)
+        if ptrs is None or type(stream) is FakeTensor:
+            return self._fake_launch(work)
         lib = library()
         fn = getattr(lib, self.symbol)
         fn.argtypes = list(self.argtypes)
         fn.restype = INT
-        err = fn(*args)
+        err = fn(*ptrs, stream_of(stream))
         if err != 0:
             msg = lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"{msg} (error {err})")
         self.launches += 1
 
+    def _fake_launch(self, work: tuple) -> None:
+        dry = _DRY.get()
+        if dry is None:
+            raise RuntimeError(
+                f"a fake tensor reached the launch of CUDA kernel "
+                f"{self.name} outside a dry run "
+                f"(repro_torch.launch.dryrun); nothing was launched")
+        dry[0](self.name, self.cost(*work))
+
 
 #: every kernel of the package, by name (registered by the ops modules)
 KERNELS: dict[str, Kernel] = {}
 
 
-def register(name: str, symbol: str, argtypes: tuple) -> Kernel:
-    k = KERNELS[name] = Kernel(name, symbol, argtypes)
+def register(name: str, symbol: str, argtypes: tuple,
+             cost: Callable[..., Work]) -> Kernel:
+    k = KERNELS[name] = Kernel(name, symbol, argtypes, cost)
     return k
 
 
@@ -168,8 +255,16 @@ def launch_counts() -> dict[str, int]:
 
 
 def stream_of(t) -> int:
-    import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t, n: int) -> bool:
+    """Whether ``t``'s first element sits on an ``n``-byte boundary (a fake
+    tensor's storage starts aligned, as the caching allocator's blocks
+    do)."""
+    if type(t) is FakeTensor:
+        return t.storage_offset() * t.element_size() % n == 0
+    return t.data_ptr() % n == 0
 
 
 def int_array(values) -> ctypes.Array:
@@ -178,8 +273,9 @@ def int_array(values) -> ctypes.Array:
 
 
 def check(t, name: str, dtype, shape: tuple | None = None) -> None:
-    """Validate a kernel input: CUDA, dtype, shape and contiguity."""
-    if not t.is_cuda:
+    """Validate a kernel input: CUDA (or a fake tensor of a dry run that
+    takes the kernel route), dtype, shape and contiguity."""
+    if not t.is_cuda and not (isinstance(t, FakeTensor) and routes_kernels()):
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")

@@ -14,12 +14,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _cuda
+
 BACKENDS = ("cuda", "torch")
 
 
 def resolve_backend(backend: str, device, family: str | None = None) -> str:
-    """Resolve ``backend`` for work on ``device`` to one of `BACKENDS`."""
+    """Resolve ``backend`` for work on ``device`` to one of `BACKENDS`.  In
+    a dry run on the CPU that counts the card's work
+    (`_cuda.routes_kernels`), "auto" and "cuda" take the kernel route on
+    any device: its launches record their work and launch nothing."""
     device = torch.device(device)
+    if _cuda.routes_kernels() and backend in ("auto", "cuda"):
+        return "cuda"
     if backend == "auto":
         backend = "cuda" if device.type == "cuda" else "torch"
     if backend not in BACKENDS:

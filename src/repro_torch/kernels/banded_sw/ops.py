@@ -19,8 +19,16 @@ from repro_torch.kernels._util import LANE_SLOTS, lane_slots
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.banded_sw.ref import gotoh_banded_ref
 
+def banded_sw_cost(B: int, R: int, W: int, band: int | None) -> _cuda.Work:
+    """Each read and window read once, two ints a read written; R rows of
+    2*band+1 cells (W+1 unbanded) a read at ~14 operations a cell."""
+    cols = W + 1 if band is None or band >= W else 2 * band + 1
+    return _cuda.Work(B * (R + W) + 8 * B, B * R * cols * 14)
+
+
 BANDED_SW = _cuda.register(
-    "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 10 + (PTR,) * 3)
+    "banded_sw", "banded_sw_launch", (PTR, PTR) + (INT,) * 10 + (PTR,) * 3,
+    banded_sw_cost)
 
 MAX_SHARED = 48 * 1024
 
@@ -63,8 +71,8 @@ def banded_sw(read: torch.Tensor, win: torch.Tensor,
     threads = dp_threads(cols)
     score, end = (torch.empty(B, dtype=torch.int32, device=read.device)
                   for _ in range(2))
-    BANDED_SW(read.data_ptr(), win.data_ptr(), B, R, W, -1 if full else band,
-              cpl, threads, scoring.match, scoring.mismatch,
-              scoring.gap_open, scoring.gap_extend, score.data_ptr(),
-              end.data_ptr(), _cuda.stream_of(read))
+    BANDED_SW(read, win, B, R, W, -1 if full else band, cpl, threads,
+              scoring.match, scoring.mismatch, scoring.gap_open,
+              scoring.gap_extend, score, end, stream=read,
+              work=(B, R, W, band))
     return DPResult(score=score, ref_end=end)

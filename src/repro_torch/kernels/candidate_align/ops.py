@@ -30,9 +30,46 @@ from repro_torch.kernels.candidate_align.ref import (
     candidate_pair_align_ref,
 )
 
+# The work that depends on the data, where a caller has none (a dry run),
+# on chip_smoke.py's pair-lane batch (65,536 pairs at sub_rate 0.01): the
+# alignments of a mate a pair, each pair's candidates clamped to at least
+# one (a pair without any aligns one window; 132,990 for both mates), and
+# the valid candidates of a pair, unclamped (57,973).
+CANDIDATES_PER_PAIR = 132_990 / (2 * 65_536)
+VALID_CANDIDATES_PER_PAIR = 57_973 / 65_536
+
+
+def candidate_align_cost(B: int, R: int, C: int, E: int, packed: bool,
+                         prescreen: int, n_cand=None) -> _cuda.Work:
+    """Both mates and the (B, C) candidates read, one R+2E window a valid
+    candidate of each mate (a pair without any: one at 0) and the results
+    written; each alignment's 2E+1 shifts of R compares at ~6 operations,
+    and with a prescreen the zero-shift Hamming distance of every valid
+    candidate first.  ``n_cand``: each pair's valid candidates (a
+    tensor), or None for `CANDIDATES_PER_PAIR` and
+    `VALID_CANDIDATES_PER_PAIR`."""
+    W = R + 2 * E
+    if n_cand is None:
+        per = max(CANDIDATES_PER_PAIR, 1.0)
+        aligned = min(per, prescreen) if prescreen else per
+        n_align, n_valid = 2 * B * aligned, B * VALID_CANDIDATES_PER_PAIR
+    else:
+        n = n_cand.long()
+        a = n.clamp(min=1)
+        if prescreen:
+            a = a.clamp(max=prescreen)
+        n_align, n_valid = 2 * int(a.sum()), int(n.sum())
+    win_bytes = (W // 16 + 2) * 4 if packed else W
+    return _cuda.Work(
+        2 * B * R + 2 * B * C * 4 + n_align * win_bytes + 12 * B * 4,
+        n_align * R * (2 * E + 1) * 6
+        + (2 * n_valid * R * 2 if prescreen else 0))
+
+
 CANDIDATE_ALIGN = _cuda.register(
     "candidate_align", "candidate_align_launch",
-    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 18 + (PTR,) * 5)
+    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 18 + (PTR,) * 5,
+    candidate_align_cost)
 
 # the reduction key (score1 + score2) * C - j stays inside int32
 MAX_CANDIDATES = 512
@@ -133,13 +170,12 @@ def candidate_pair_align(
     cigar1, cigar2 = (torch.empty((B, 3, 2), dtype=torch.int32,
                                   device=ref.device) for _ in range(2))
     CANDIDATE_ALIGN(
-        kref.data.data_ptr(), int(packed_ref), reads1.data_ptr(),
-        reads2.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
+        kref.data, int(packed_ref), reads1, reads2, pos1, pos2,
         B, R, C, E, prescreen_top, int(mode == "paper"), scoring.match,
         scoring.mismatch, scoring.gap_open, scoring.gap_extend, threshold,
         threads, ppb, sr, sw, ref.shape[0], win_hi, kref.pad,
-        out.data_ptr(), cigar1.data_ptr(), cigar2.data_ptr(),
-        None if count is None else count.data_ptr(), _cuda.stream_of(ref))
+        out, cigar1, cigar2, count, stream=ref,
+        work=(B, R, C, E, packed_ref, prescreen_top))
     slot, rank, sc1, sc2, ok1, ok2, bp1, bp2 = out.unbind(0)
     return PairAlignResult(
         best=rank, slot=slot, pos1=bp1, pos2=bp2, score1=sc1, score2=sc2,

@@ -26,9 +26,23 @@ from repro_torch.kernels._cuda import F32, INT, PTR
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
+def flash_attention_cost(BH: int, G: int, S: int, D: int, causal: bool,
+                         itemsize: int) -> _cuda.Work:
+    """q, o and the (BH / G)-row k, v once each; 4 BH D flops a (query,
+    key) pair of the two products, over the causal triangle S (S + 1) / 2
+    or all S^2 pairs.  bf16 runs on the tensor cores, float32 (the FMA
+    kernel) outside them."""
+    n_kv = BH // G
+    pairs = S * (S + 1) / 2 if causal else S * S
+    return _cuda.Work(itemsize * S * D * (2 * BH + 2 * n_kv),
+                      4 * BH * D * pairs,
+                      "bfloat16" if itemsize == 2 else "float32")
+
+
 FLASH_ATTENTION = _cuda.register(
     "flash_attention", "flash_attention_launch",
-    (PTR, PTR, PTR, PTR, INT, INT, INT, INT, F32, INT, INT, PTR))
+    (PTR, PTR, PTR, PTR, INT, INT, INT, INT, F32, INT, INT, PTR),
+    flash_attention_cost)
 
 BLOCK = 128                       # repro's default block_q = block_k
 # the kernel's head widths in each dtype
@@ -82,13 +96,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d_pad = kernel_head_dim(D, q.dtype) - D
     for name, t in (("q", q), ("k", k), ("v", v)):
         _cuda.check(t, name, q.dtype)
-        if t.data_ptr() % 16:
+        if not _cuda.aligned(t, 16):
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if pad or d_pad:
         q, k, v = (torch.nn.functional.pad(t, (0, d_pad, 0, pad))
                    for t in (q, k, v))
     out = torch.empty_like(q)
-    FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    BH, BH // k.shape[0], S + pad, D + d_pad, sm_scale,
-                    int(causal), DTYPES[q.dtype], _cuda.stream_of(q))
+    G = BH // k.shape[0]
+    FLASH_ATTENTION(q, k, v, out, BH, G, S + pad, D + d_pad, sm_scale,
+                    int(causal), DTYPES[q.dtype], stream=q,
+                    work=(BH, G, S + pad, D + d_pad, causal,
+                          q.element_size()))
     return out[:, :S, :D] if pad or d_pad else out

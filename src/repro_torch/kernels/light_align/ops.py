@@ -19,8 +19,18 @@ from repro_torch.kernels._cuda import INT, PTR
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.light_align.ref import light_align_ref
 
+def light_align_cost(B: int, R: int, E: int) -> _cuda.Work:
+    """Each read and R+2E window read once, five ints a read written; counted
+    at four bases a 32-bit word: 2E+1 mismatch masks (a shift's four flags
+    take ~10 operations: 2.5 a base) and 2E gap walks (a nibble of four
+    positions through the table, ~7: 1.75 a base)."""
+    return _cuda.Work(B * (R + R + 2 * E) + B * 5 * 4,
+                      B * R * ((2 * E + 1) * 2.5 + 2 * E * 1.75))
+
+
 LIGHT_ALIGN = _cuda.register(
-    "light_align", "light_align_launch", (PTR, PTR) + (INT,) * 8 + (PTR, PTR))
+    "light_align", "light_align_launch", (PTR, PTR) + (INT,) * 8 + (PTR, PTR),
+    light_align_cost)
 
 # positions a warp holds: 32 lanes of at most 32 (the lanes' bitmasks)
 MAX_READ = 1024
@@ -65,10 +75,9 @@ def light_align(read: torch.Tensor, refwin: torch.Tensor, max_gap: int,
     _cuda.check(reads, "read", torch.uint8)
     _cuda.check(wins, "refwin", torch.uint8, (B, W))
     out = torch.empty((5, B), dtype=torch.int32, device=read.device)
-    LIGHT_ALIGN(reads.data_ptr(), wins.data_ptr(), B, R, E,
-                int(mode == "paper"), scoring.match, scoring.mismatch,
-                scoring.gap_open, scoring.gap_extend, out.data_ptr(),
-                _cuda.stream_of(read))
+    LIGHT_ALIGN(reads, wins, B, R, E, int(mode == "paper"), scoring.match,
+                scoring.mismatch, scoring.gap_open, scoring.gap_extend, out,
+                stream=read, work=(B, R, E))
     score, etype, elen, epos, mm = out.unbind(0)
     return LightAlignResult(score=score, ok=score >= threshold,
                             edit_type=etype, edit_len=elen, edit_pos=epos,

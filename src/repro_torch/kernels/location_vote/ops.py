@@ -8,6 +8,8 @@ take raises on either backend; the result does not depend on it.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _cuda
@@ -18,9 +20,15 @@ from repro_torch.kernels.location_vote.ref import (
     location_vote_ref,
 )
 
+def location_vote_cost(B: int, M: int) -> _cuda.Work:
+    """Each (B, M) int32 row read once, two ints a read written; the
+    function's own work, a sort of each row (~2 M log2 M)."""
+    return _cuda.Work(4 * B * M + 8 * B, B * 2 * M * math.log2(max(M, 2)))
+
+
 LOCATION_VOTE = _cuda.register(
     "location_vote", "location_vote_launch",
-    (PTR, INT, INT, INT, PTR, PTR, INT, PTR))
+    (PTR, INT, INT, INT, PTR, PTR, INT, PTR), location_vote_cost)
 
 MAX_SHARED = 48 * 1024
 MAX_WARPS = 32            # 1,024 threads a block
@@ -64,6 +72,6 @@ def location_vote(diag: torch.Tensor, vote_bin: int,
     warps = vote_warps(M, block)
     win_bin, votes = (torch.empty(B, dtype=torch.int32, device=diag.device)
                       for _ in range(2))
-    LOCATION_VOTE(diag.data_ptr(), B, M, vote_bin, win_bin.data_ptr(),
-                  votes.data_ptr(), warps, _cuda.stream_of(diag))
+    LOCATION_VOTE(diag, B, M, vote_bin, win_bin, votes, warps, stream=diag,
+                  work=(B, M))
     return VoteResult(win_bin=win_bin, votes=votes)

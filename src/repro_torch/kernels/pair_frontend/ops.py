@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -30,18 +31,69 @@ from repro_torch.kernels.pair_frontend.ref import (
     pair_frontend_ref,
 )
 
+# The work that depends on the data, where a caller has none (a dry run):
+# the valid seed hits of a mate (h of its S*K slots) on chip_smoke.py's
+# pair-lane batch (65,536 pairs at sub_rate 0.01 against a 2^27-base
+# random reference: 7.785 of 96).
+HITS_PER_MATE = 7.785
+
+
+def seed_buckets_cost(B: int, R: int, S: int, seed_len: int) -> _cuda.Work:
+    """Both mates read once, the (2B, S) ids written; each seed's 2-bit
+    packing (2 operations a base) and its xxhash (~40)."""
+    return _cuda.Work(2 * B * R + 2 * B * S * 4,
+                      2 * B * S * (2 * seed_len + 40))
+
+
+def _merge_ops(B: int, hits1, hits2) -> float:
+    """The merge + Δ filter's own work over B pairs: each mate's h valid
+    starts sorted (2 h log2 h), a search of mate 1's into mate 2's
+    (2 h1 log2 h2), and O(h1) probing, dedup and compaction.  ``hits1``,
+    ``hits2``: each pair's valid hits (tensors), or None for
+    `HITS_PER_MATE` a mate."""
+    if hits1 is None:
+        h = HITS_PER_MATE
+        return B * (6 * h * math.log2(max(h, 2)) + 12 * h)
+    h1, h2 = hits1.double(), hits2.double()
+
+    def nlogn(h, n):
+        return h * torch.log2(n.clamp(min=2))
+
+    return float((2 * nlogn(h1, h1) + 2 * nlogn(h2, h2) + 2 * nlogn(h1, h2)
+                  + 12 * h1).sum())
+
+
+def pair_frontend_cost(B: int, S: int, K: int, C: int, hits1=None,
+                       hits2=None) -> _cuda.Work:
+    """The (2B, S) ids and their K-wide rows read, the results written;
+    each mate's S*K row slots scanned, then `_merge_ops`."""
+    M = S * K
+    return _cuda.Work(2 * B * S * 4 + 2 * B * M * 4 + B * (2 * C + 3) * 4,
+                      2 * B * M + _merge_ops(B, hits1, hits2))
+
+
+def merge_filter_cost(B: int, S: int, K: int, C: int, hits1=None,
+                      hits2=None) -> _cuda.Work:
+    """`pair_frontend_cost` without the ids and the row scan: the gathered
+    (2B, S, K) locations read, the results written, `_merge_ops`."""
+    M = S * K
+    return _cuda.Work(2 * B * M * 4 + B * (2 * C + 3) * 4,
+                      _merge_ops(B, hits1, hits2))
+
+
 SEED_BUCKETS = _cuda.register(
     "seed_buckets", "seed_buckets_launch",
-    (PTR, PTR, INT, INT, PTR, INT, INT, U32, U32, PTR, PTR))
+    (PTR, PTR, INT, INT, PTR, INT, INT, U32, U32, PTR, PTR),
+    seed_buckets_cost)
 PAIR_FRONTEND = _cuda.register(
     "pair_frontend", "pair_frontend_launch",
     (PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, INT,
-     PTR))
+     PTR), pair_frontend_cost)
 
 MERGE_FILTER = _cuda.register(
     "merge_filter", "merge_filter_launch",
     (PTR, PTR, INT, INT, INT, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, INT,
-     PTR))
+     PTR), merge_filter_cost)
 
 MAX_SHARED = 48 * 1024
 MAX_SEEDS = 16
@@ -106,10 +158,9 @@ def seed_buckets(reads1: torch.Tensor, reads2: torch.Tensor, seed_len: int,
         raise ValueError("table_size must be a power of two")
     out = torch.empty((2 * B, len(offs)), dtype=torch.int32,
                       device=reads1.device)
-    SEED_BUCKETS(reads1.data_ptr(), reads2.data_ptr(), B, R,
-                 _offsets_array(offs), len(offs), seed_len,
-                 hash_seed & 0xFFFFFFFF, table_size - 1, out.data_ptr(),
-                 _cuda.stream_of(reads1))
+    SEED_BUCKETS(reads1, reads2, B, R, _offsets_array(offs), len(offs),
+                 seed_len, hash_seed & 0xFFFFFFFF, table_size - 1, out,
+                 stream=reads1, work=(B, R, len(offs), seed_len))
     return out
 
 
@@ -128,10 +179,9 @@ def frontend_from_buckets(rows: torch.Tensor, buckets: torch.Tensor,
         raise ValueError(f"pair_frontend supports S <= {MAX_SEEDS} seeds")
     warps = frontend_warps(S, K, block)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, rows.device)
-    PAIR_FRONTEND(rows.data_ptr(), K, buckets.data_ptr(), B, S,
-                  _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
-                  pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
-                  nh2.data_ptr(), warps, _cuda.stream_of(rows))
+    PAIR_FRONTEND(rows, K, buckets, B, S, _offsets_array(tuple(seed_offs)),
+                  delta, C, pos1, pos2, n, nh1, nh2, warps, stream=rows,
+                  work=(B, S, K, C))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
                           n_hits2=nh2)
 
@@ -161,10 +211,9 @@ def frontend_merge_filter(
         raise ValueError(f"merge_filter supports S <= {MAX_SEEDS} seeds")
     warps = frontend_warps(S, K, block)
     pos1, pos2, n, nh1, nh2 = _frontend_outputs(B, C, locs1.device)
-    MERGE_FILTER(locs1.data_ptr(), locs2.data_ptr(), B, S, K,
-                 _offsets_array(tuple(seed_offs)), delta, C, pos1.data_ptr(),
-                 pos2.data_ptr(), n.data_ptr(), nh1.data_ptr(),
-                 nh2.data_ptr(), warps, _cuda.stream_of(locs1))
+    MERGE_FILTER(locs1, locs2, B, S, K, _offsets_array(tuple(seed_offs)),
+                 delta, C, pos1, pos2, n, nh1, nh2, warps, stream=locs1,
+                 work=(B, S, K, C))
     return FrontendResult(pos1=pos1, pos2=pos2, n=n, n_hits1=nh1,
                           n_hits2=nh2)
 

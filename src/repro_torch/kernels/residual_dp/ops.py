@@ -29,9 +29,31 @@ from repro_torch.kernels.residual_dp.ref import (
     residual_pair_dp_ref,
 )
 
+# The work that depends on the data, where a caller has none (a dry run):
+# the mates a buffer row re-aligns, on chip_smoke.py's pair-lane batch
+# (17,943 items in the 16,384-row buffer of 65,536 pairs at sub_rate
+# 0.01).
+ITEMS_PER_ROW = 17_943 / 16_384
+
+
+def residual_dp_cost(N: int, R: int, W: int, band: int | None,
+                     packed: bool, n_items=None) -> _cuda.Work:
+    """Each needed mate's read and W-base window read, every row's
+    positions, flags and results; each needed mate's R rows of
+    2*band+1 cells (W+1 unbanded) at ~14 operations a cell.
+    ``n_items``: the needed mates, or None for `ITEMS_PER_ROW` a row."""
+    full = band is None or band >= W
+    cols = W + 1 if full else 2 * band + 1
+    items = N * ITEMS_PER_ROW if n_items is None else n_items
+    win_bytes = (W // 16 + 2) * 4 if packed else W
+    return _cuda.Work(items * (R + win_bytes) + N * (2 * 4 + 2 + 4 * 4),
+                      items * R * cols * 14)
+
+
 RESIDUAL_DP = _cuda.register(
     "residual_dp", "residual_dp_launch",
-    (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR, PTR, INT, PTR))
+    (PTR, INT) + (PTR,) * 6 + (INT,) * 13 + (PTR, PTR, INT, PTR),
+    residual_dp_cost)
 
 MAX_SHARED = 48 * 1024
 #: the default warps a block, and the most the kernel's __launch_bounds__
@@ -127,12 +149,11 @@ def residual_pair_dp(
     score, end = (torch.empty((N, 2), dtype=torch.int32, device=ref.device)
                   for _ in range(2))
     RESIDUAL_DP(
-        kref.data.data_ptr(), int(packed_ref), reads1.data_ptr(),
-        reads2.data_ptr(), pos1.data_ptr(), pos2.data_ptr(),
-        need1.data_ptr(), need2.data_ptr(), N, R, W, -1 if full else band,
-        dp_pad, ref.shape[0], win_hi, kref.pad, cpl, scoring.match,
-        scoring.mismatch, scoring.gap_open, scoring.gap_extend,
-        score.data_ptr(), end.data_ptr(), warps, _cuda.stream_of(ref))
+        kref.data, int(packed_ref), reads1, reads2, pos1, pos2, need1,
+        need2, N, R, W, -1 if full else band, dp_pad, ref.shape[0], win_hi,
+        kref.pad, cpl, scoring.match, scoring.mismatch, scoring.gap_open,
+        scoring.gap_extend, score, end, warps, stream=ref,
+        work=(N, R, W, band, packed_ref))
     return ResidualDPResult(
         score1=score[:, 0], ref_end1=end[:, 0],
         score2=score[:, 1], ref_end2=end[:, 1],

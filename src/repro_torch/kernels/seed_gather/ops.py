@@ -13,9 +13,14 @@ from repro_torch.kernels._cuda import I64, INT, PTR
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.seed_gather.ref import seed_gather_ref
 
+def seed_gather_cost(n: int, cap: int, itemsize: int = 4) -> _cuda.Work:
+    """4 bytes of id, one cap-wide row read and one written an id."""
+    return _cuda.Work(n * (4 + 2 * cap * itemsize), 0)
+
+
 SEED_GATHER = _cuda.register(
     "seed_gather", "seed_gather_launch", (PTR, I64, INT, PTR, I64, INT, PTR,
-                                          PTR))
+                                          PTR), seed_gather_cost)
 
 TABLE_DTYPES = (torch.int32, torch.float32)
 
@@ -41,7 +46,7 @@ def seed_gather(table: torch.Tensor, ids: torch.Tensor,
     _cuda.check(flat, "ids", torch.int32)
     n = flat.shape[0]
     out = torch.empty((n, cap), dtype=table.dtype, device=table.device)
-    vec = cap % 4 == 0 and table.data_ptr() % 16 == 0
-    SEED_GATHER(table.data_ptr(), T, cap, flat.data_ptr(), n, int(vec),
-                out.data_ptr(), _cuda.stream_of(table))
+    vec = cap % 4 == 0 and _cuda.aligned(table, 16)
+    SEED_GATHER(table, T, cap, flat, n, int(vec), out, stream=table,
+                work=(n, cap, table.element_size()))
     return out.reshape(ids.shape + (cap,))

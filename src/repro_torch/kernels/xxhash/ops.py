@@ -19,8 +19,14 @@ from repro_torch.kernels._cuda import I64, PTR, U32
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.xxhash.ref import xxhash32_ref
 
+def xxhash32_cost(n: int) -> _cuda.Work:
+    """16 bytes in and an int64 out a hash; ~51 integer operations of
+    xxhash.cuh each."""
+    return _cuda.Work(n * (16 + 8), n * 51)
+
+
 XXHASH32 = _cuda.register("xxhash32", "xxhash32_launch",
-                          (PTR, I64, U32, PTR, PTR))
+                          (PTR, I64, U32, PTR, PTR), xxhash32_cost)
 
 WORD_DTYPES = (torch.uint32, torch.int32, torch.int64)
 
@@ -46,10 +52,9 @@ def xxhash32(words: torch.Tensor, seed: int = 0,
     if backend == "torch":
         return xxhash32_ref(words, seed)
     flat = _int32_bits(words).reshape(-1, 4)
-    if not flat.is_contiguous() or flat.data_ptr() % 16:
+    if not flat.is_contiguous() or not _cuda.aligned(flat, 16):
         flat = flat.clone(memory_format=torch.contiguous_format)
     n = flat.shape[0]
     out = torch.empty(n, dtype=torch.int64, device=words.device)
-    XXHASH32(flat.data_ptr(), n, seed & MASK32, out.data_ptr(),
-             _cuda.stream_of(words))
+    XXHASH32(flat, n, seed & MASK32, out, stream=words, work=(n,))
     return out.reshape(words.shape[:-1])
