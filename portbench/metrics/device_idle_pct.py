@@ -1,0 +1,9 @@
+"""The share of the traced window in which no kernel, copy or set ran on
+the card (torch.profiler's device timeline), in %."""
+
+
+def read(run):
+    t = run.get("trace")
+    if not t or t["busy_s"] <= 0 or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
