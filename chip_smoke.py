@@ -2145,8 +2145,6 @@ def main() -> int:
         raise RuntimeError("mapping accuracy below the expected floor")
     r1_dev = torch.as_tensor(noisy.reads1, device=dev)
     r2_dev = torch.as_tensor(noisy.reads2, device=dev)
-    profile_step(lambda: mapper.map(r1_dev, r2_dev), BATCH, "pairs", "step",
-                 "[2]", record, out_dir)
 
     # ---- 2b. long-read lane on the same session ----------------------------
     lr = mapper.lr_cfg

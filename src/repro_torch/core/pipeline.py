@@ -289,56 +289,64 @@ def map_batch(front, ref: torch.Tensor, reads1: torch.Tensor,
     step 5 fills the global residual buffer, so the result equals the
     single-device result and every rank returns it.
     """
+    # engine imports core, so the stream's spans are looked up here
+    from repro_torch.engine.spans import span
+
     B, R = reads1.shape
     if R != cfg.read_len:
         raise ValueError(f"reads are {R} bp, config says {cfg.read_len}")
-    reads2_fwd = revcomp(reads2).contiguous()  # reference orientation
-    r1, r2_fwd = reads1, reads2_fwd
-    if split is not None:
-        r1, r2_fwd = split.rows(reads1), split.rows(reads2_fwd)
-
     # -- 1-3. Front end --------------------------------------------------
-    had_hits, cands = front(r1, r2_fwd)
-    passed = cands.n > 0
+    with span("step.front"):
+        reads2_fwd = revcomp(reads2).contiguous()  # reference orientation
+        r1, r2_fwd = reads1, reads2_fwd
+        if split is not None:
+            r1, r2_fwd = split.rows(reads1), split.rows(reads2_fwd)
+        had_hits, cands = front(r1, r2_fwd)
+        passed = cands.n > 0
 
     # -- 4. Light Alignment over candidates ------------------------------
-    packed = cfg.packed(default=False)
-    if packed and ref.dtype != torch.int32:
-        raise ValueError("packed_ref needs the int32 packed words")
-    pair = candidate_pair_align(
-        ref, r1, r2_fwd, cands.pos1, cands.pos2, cfg.max_gap,
-        scoring=cfg.scoring, threshold=cfg.threshold(), mode=cfg.light_mode,
-        prescreen_top=cfg.prescreen(), packed_ref=packed, backend=backend,
-        kref=kref, block=cfg.light_block)
-    if split is not None:
-        had_hits, passed, *fields = split.gather((had_hits, passed, *pair))
-        pair = type(pair)(*fields)
-    light_ok = passed & pair.ok1 & pair.ok2
+    with span("step.light"):
+        packed = cfg.packed(default=False)
+        if packed and ref.dtype != torch.int32:
+            raise ValueError("packed_ref needs the int32 packed words")
+        pair = candidate_pair_align(
+            ref, r1, r2_fwd, cands.pos1, cands.pos2, cfg.max_gap,
+            scoring=cfg.scoring, threshold=cfg.threshold(),
+            mode=cfg.light_mode, prescreen_top=cfg.prescreen(),
+            packed_ref=packed, backend=backend, kref=kref,
+            block=cfg.light_block)
+        if split is not None:
+            had_hits, passed, *fields = split.gather((had_hits, passed,
+                                                      *pair))
+            pair = type(pair)(*fields)
+        light_ok = passed & pair.ok1 & pair.ok2
 
     # -- 5. DP fallback on the fixed-capacity residual buffer ------------
-    dp_sc1, dp_sc2, dp_done, dp_overflow, dp_m1, dp_m2 = _residual_dp_stage(
-        ref, reads1, reads2_fwd, pair, passed, light_ok, cfg, packed, backend,
-        kref, split)
+    with span("step.dp"):
+        dp_sc1, dp_sc2, dp_done, dp_overflow, dp_m1, dp_m2 = \
+            _residual_dp_stage(ref, reads1, reads2_fwd, pair, passed,
+                               light_ok, cfg, packed, backend, kref, split)
 
     # -- assemble ---------------------------------------------------------
-    method = torch.full((B,), M_UNMAPPED, dtype=torch.int32,
-                        device=reads1.device)
-    method = torch.where(~had_hits, M_RESIDUAL_FULL, method)
-    method = torch.where(had_hits & ~passed, M_RESIDUAL_FULL, method)
-    method = torch.where(light_ok, M_LIGHT, method)
-    method = torch.where(dp_done, M_DP, method)
-    method = torch.where(dp_overflow, M_DP_OVERFLOW, method)
+    with span("step.assemble"):
+        method = torch.full((B,), M_UNMAPPED, dtype=torch.int32,
+                            device=reads1.device)
+        method = torch.where(~had_hits, M_RESIDUAL_FULL, method)
+        method = torch.where(had_hits & ~passed, M_RESIDUAL_FULL, method)
+        method = torch.where(light_ok, M_LIGHT, method)
+        method = torch.where(dp_done, M_DP, method)
+        method = torch.where(dp_overflow, M_DP_OVERFLOW, method)
 
-    mapped = light_ok | dp_done
-    return MapResult(
-        pos1=torch.where(mapped, pair.pos1, INVALID_LOC),
-        pos2=torch.where(mapped, pair.pos2, INVALID_LOC),
-        score1=torch.where(light_ok, pair.score1,
-                           torch.where(dp_done, dp_sc1, NEG)),
-        score2=torch.where(light_ok, pair.score2,
-                           torch.where(dp_done, dp_sc2, NEG)),
-        method=method, cigar1=pair.cigar1, cigar2=pair.cigar2,
-        had_hits=had_hits, passed_adjacency=passed, light_ok=light_ok,
-        dp_mate1=dp_m1, dp_mate2=dp_m2,
-        n_valid=torch.ones(B, dtype=torch.bool, device=reads1.device),
-    )
+        mapped = light_ok | dp_done
+        return MapResult(
+            pos1=torch.where(mapped, pair.pos1, INVALID_LOC),
+            pos2=torch.where(mapped, pair.pos2, INVALID_LOC),
+            score1=torch.where(light_ok, pair.score1,
+                               torch.where(dp_done, dp_sc1, NEG)),
+            score2=torch.where(light_ok, pair.score2,
+                               torch.where(dp_done, dp_sc2, NEG)),
+            method=method, cigar1=pair.cigar1, cigar2=pair.cigar2,
+            had_hits=had_hits, passed_adjacency=passed, light_ok=light_ok,
+            dp_mate1=dp_m1, dp_mate2=dp_m2,
+            n_valid=torch.ones(B, dtype=torch.bool, device=reads1.device),
+        )

@@ -49,6 +49,7 @@ from repro_torch.core.seedmap import (
     build_seedmap,
     to_padded,
 )
+from repro_torch.engine import spans
 from repro_torch.engine.config import (
     ExecutionConfig,
     resolved_long_read,
@@ -373,7 +374,8 @@ class Mapper:
                 warmup_batch) -> StreamResult:
         """The lane-generic stream body behind `map_stream` and
         `map_long_stream`: warmup, tail padding, per-batch stage totals on
-        the device and the one fetch at the end."""
+        the device and the one fetch at the end, under the stream's
+        `spans.StreamTrace`."""
         step_name, counts_fn, keys, n_arrays = self._LANES[lane]
         step = getattr(self, step_name)
         stream_batch = self.exec_cfg.stream_batch
@@ -386,29 +388,35 @@ class Mapper:
                 stream_batch = int(np.shape(reads[0])[0])
             step(*(to_device(pad_tail(r, stream_batch), dev) for r in reads),
                  stream_batch)
+        trace = spans.StreamTrace(dev)
 
         def dispatch(*args):
             nonlocal reduced
             *reads, n, aux = args
-            res = step(*(to_device(r, dev) for r in reads), n)
-            add_stage_counts(totals, counts_fn(res), keys)
+            with trace.spans["step"]:
+                res = step(*reads, n)
+            trace.step_end()
+            with trace.spans["stream.counts"]:
+                add_stage_counts(totals, counts_fn(res), keys)
             if reduce_fn is not None:
                 reduced = reduce_fn(reduced, res,
                                     tree_map(lambda a: to_device(a, dev),
                                              aux))
             return res
 
-        def sync():
+        def drain():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            return fetch_stage_totals(totals, keys)
 
-        n_items, n_batches, seconds, _ = run_stream(
-            dispatch, batches, stream_batch=stream_batch,
-            on_result=on_result, sync=sync, n_arrays=n_arrays)
+        with trace:
+            n_items, n_batches, seconds, fetched = run_stream(
+                dispatch, batches, trace, dev, stream_batch=stream_batch,
+                on_result=on_result, drain=drain, n_arrays=n_arrays)
         return StreamResult(n_pairs=n_items, n_batches=n_batches,
-                            seconds=seconds,
-                            totals=fetch_stage_totals(totals, keys),
-                            reduced=reduced, reads_per_item=n_arrays)
+                            seconds=seconds, totals=fetched,
+                            reduced=reduced, reads_per_item=n_arrays,
+                            trace=trace.summary)
 
     def map_stream(self, batches, on_result=None, reduce_fn=None,
                    reduce_init=None, warmup_batch=None) -> StreamResult:

@@ -5,11 +5,14 @@ device from pinned memory without blocking, and mapped with eager kernel
 launches on the current stream; the host goes on to pull and pad the next
 batch while the device works.  Consumers see results one batch late
 (``on_result`` for batch k fires after batch k+1 was dispatched).  The
-stage totals stay on the device; the host syncs once, at the end.
+stage totals stay on the device; the host syncs once, at the end.  The
+loop's spans, markers and counters go to the stream's
+`engine.spans.StreamTrace`.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 
 import numpy as np
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.engine.stats import stage_fractions
 from repro_torch.tree import tree_map
+
+_END = object()
 
 
 @dataclasses.dataclass
@@ -43,6 +48,10 @@ class StreamResult:
     #: counts, watchdog states, the control-word log and the drain
     #: reason.  None on a plain single-host stream.
     health: dict | None = None
+    #: the stream's spans, device markers and counters
+    #: (`engine.spans.StreamTrace.summary`); None on a fleet stream over
+    #: several hosts
+    trace: dict | None = None
 
     @property
     def pairs_per_s(self) -> float:
@@ -86,45 +95,79 @@ def split_batch(item, n_arrays: int = 2):
     return tuple(item[:n_arrays]), item[n_arrays]
 
 
+def pin(arr, device: torch.device) -> tuple[torch.Tensor, int]:
+    """Host array -> (the host tensor a copy to ``device`` reads, the
+    bytes staged for it).  On CUDA the tensor lies in pinned memory: a
+    pinned array is taken as it is, a pageable one is first copied there
+    (its bytes are the staged ones).  Elsewhere it is the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t, 0
+    p = t.pin_memory()
+    return p, (0 if p.data_ptr() == t.data_ptr() else p.nbytes)
+
+
 def to_device(arr, device: torch.device) -> torch.Tensor:
     """Host array -> device tensor; via pinned memory and a non-blocking
     copy on CUDA (the pinned block is not reused until the copy ran)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    return pin(arr, device)[0].to(device, non_blocking=True)
 
 
-def run_stream(dispatch, batches, *, stream_batch=None, on_result=None,
-               sync=None, n_arrays: int = 2):
+def run_stream(dispatch, batches, trace, device: torch.device, *,
+               stream_batch=None, on_result=None, drain=None,
+               n_arrays: int = 2):
     """Drive ``dispatch(*reads, n, aux) -> result`` over host batches of
-    ``n_arrays`` read arrays each.
+    ``n_arrays`` read arrays each, the reads already copied to ``device``.
 
     The first batch fixes the stream shape unless ``stream_batch`` pins
-    it.  ``sync()`` waits for the device once, after the last dispatch.
-    Returns ``(n_items, n_batches, seconds, last_result)``.
+    it.  ``drain()`` waits for the device once, after the last dispatch,
+    and returns what the caller fetches then.  ``trace`` (an active
+    `engine.spans.StreamTrace`) gets the loop's spans, the markers around
+    each batch's copies (M0, M1; ``dispatch`` records M2) and the
+    counters.  Returns ``(n_items, n_batches, seconds, drained)``.
     """
-    n_items = n_batches = 0
-    prev = res = None
+    spans = trace.spans
+    prev = None
     t0 = None
-    for idx, item in enumerate(batches):
-        reads, aux = split_batch(item, n_arrays)
-        n = int(np.shape(reads[0])[0])
-        if stream_batch is None:
-            stream_batch = n
-        padded = tuple(pad_tail(r, stream_batch) for r in reads)
-        aux = tree_map(lambda a: pad_tail(a, stream_batch), aux)
+    it = iter(batches)
+    for idx in itertools.count():
+        trace.batch = idx
+        with spans["stream.pull"]:
+            item = next(it, _END)
+        if item is _END:
+            break
         if t0 is None:   # host-side generation of batch 0 is set-up
             t0 = time.time()
-        res = dispatch(*padded, n, aux)
-        n_items += n
-        n_batches += 1
+        with spans["stream.stage"]:
+            reads, aux = split_batch(item, n_arrays)
+            n = int(np.shape(reads[0])[0])
+            if stream_batch is None:
+                stream_batch = n
+            host = []
+            for r in reads:
+                h, staged = pin(pad_tail(r, stream_batch), device)
+                host.append(h)
+                trace.staged_bytes += staged
+                trace.h2d_bytes += h.nbytes
+            aux = tree_map(lambda a: pad_tail(a, stream_batch), aux)
+        trace.copy_start()
+        with spans["stream.h2d"]:
+            on_dev = [h.to(device, non_blocking=True) for h in host]
+        trace.copy_end()
+        res = dispatch(*on_dev, n, aux)
+        trace.items += n
+        trace.batches += 1
         if prev is not None and on_result is not None:
-            on_result(*prev)
+            trace.batch = prev[0]
+            with spans["stream.on_result"]:
+                on_result(*prev)
         prev = (idx, res, n)
     if prev is not None and on_result is not None:
-        on_result(*prev)
-    if res is not None and sync is not None:
-        sync()
+        trace.batch = prev[0]
+        with spans["stream.on_result"]:
+            on_result(*prev)
+    with spans["stream.drain"]:
+        drained = None if drain is None else drain()
+        trace.anchor()
     seconds = 0.0 if t0 is None else time.time() - t0
-    return n_items, n_batches, seconds, res
+    return trace.items, trace.batches, seconds, drained

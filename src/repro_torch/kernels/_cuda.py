@@ -254,6 +254,75 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+class TimingEvents:
+    """The library's timing events (``csrc/markers.cu``) as plain calls:
+    an event is an integer handle, made on a device and freed with
+    `destroy`; a stream is a ``cudaStream_t`` as an integer.  A CUDA error
+    raises.  One C call each, a few microseconds of host where
+    ``torch.cuda.Event`` spends 3-10 (the marker path of `engine.spans`
+    runs three records and one read a batch)."""
+
+    NOT_READY = 600          # cudaErrorNotReady
+
+    def __init__(self):
+        lib = library()
+        sigs = {"repro_event_create": [INT, ctypes.POINTER(PTR)],
+                "repro_event_destroy": [PTR],
+                "repro_event_record": [PTR, PTR],
+                "repro_event_synchronize": [PTR],
+                "repro_marker_times": [PTR, PTR, PTR, PTR, PTR],
+                "repro_event_elapsed": [PTR, PTR, PTR]}
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, INT
+        self._lib = lib
+        self._record = lib.repro_event_record
+        self._times = lib.repro_marker_times
+        self._out = (ctypes.c_float * 3)()
+        self._out_p = ctypes.cast(self._out, PTR)
+
+    def _check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = self._lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"CUDA {what} failed: {msg} (error {err})")
+
+    def create(self, device: int) -> int:
+        ev = PTR()
+        self._check(self._lib.repro_event_create(device, ctypes.byref(ev)),
+                    "event create")
+        return ev.value
+
+    def destroy(self, ev: int) -> None:
+        self._check(self._lib.repro_event_destroy(ev), "event destroy")
+
+    def record(self, ev: int, stream: int) -> None:
+        err = self._record(ev, stream)
+        if err:
+            self._check(err, "event record")
+
+    def synchronize(self, ev: int) -> None:
+        self._check(self._lib.repro_event_synchronize(ev),
+                    "event synchronize")
+
+    def times(self, prev: int, m0: int, m1: int, m2: int):
+        """ms from ``prev`` to ``m0``, ``m0`` to ``m1`` and ``m1`` to
+        ``m2`` once ``m2`` ran, else None."""
+        err = self._times(prev, m0, m1, m2, self._out_p)
+        if err == self.NOT_READY:
+            return None
+        if err:
+            self._check(err, "marker read")
+        out = self._out
+        return out[0], out[1], out[2]
+
+    def elapsed(self, a: int, b: int) -> float:
+        """ms from ``a`` to ``b``, both of which ran."""
+        out = ctypes.c_float()
+        self._check(self._lib.repro_event_elapsed(a, b, ctypes.byref(out)),
+                    "event elapsed")
+        return out.value
+
+
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

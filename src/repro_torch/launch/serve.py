@@ -250,6 +250,8 @@ def _serve_stream(ref, sm, stream, sim_cfg, batch, batches, pipe_cfg,
         "pair_correct_of_mapped": a["pair_correct"] / max(a["pair_mapped"],
                                                           1),
         **sr.fractions,
+        # the stream's spans, device markers and counters
+        "trace": sr.trace,
     }
 
 

@@ -16,11 +16,14 @@ TINY = dict(ref_len=60_000, batch=16, batches=2, table_bits=15,
 #: keys that are times or rates, or name a path
 TIMING = {"pairs_per_s", "reads_per_s", "mbp_per_s", "index_build_s",
           "seconds", "save_s", "latency", "store", "manifest"}
+#: keys only the port's output has: the pair stream's trace (spans,
+#: device markers, counters)
+PORT_ONLY = {"trace"}
 
 
 def _same(got, want):
-    assert set(got) == set(want)
-    for k in set(want) - TIMING:
+    assert set(got) - PORT_ONLY == set(want) - PORT_ONLY
+    for k in set(want) - TIMING - PORT_ONLY:
         assert got[k] == want[k], k
 
 
@@ -29,6 +32,9 @@ def test_serve_matches_repro(loop):
     got = tserve.serve(loop=loop, device="cpu", **TINY)
     _same(got, jserve.serve(loop=loop, **TINY))
     assert got["pairs"] == 32 and got["mapped_frac"] > 0.9
+    if loop == "stream":
+        assert got["trace"]["batches"] == 2
+        assert got["trace"]["spans"]["step"]["count"] == 2
 
 
 def test_serve_long_matches_repro():

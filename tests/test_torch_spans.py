@@ -1,0 +1,339 @@
+"""The stream path's spans, device markers and counters
+(`repro_torch.engine.spans`) on the CPU: span counts and nesting, exact
+counters, the profiler mirror (only while the profiler runs), the marker
+arithmetic and pool on scripted events, and the benchmark's readers of
+the measured window.  One test, on the card, reads the real markers."""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.pipeline import PipelineConfig
+from repro_torch.core.seedmap import SeedMapConfig
+from repro_torch.core.simulate import (
+    ReadSimConfig,
+    random_reference,
+    simulate_pairs,
+)
+from repro_torch.engine import ExecutionConfig, Mapper, spans
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from portbench import manifest  # noqa: E402
+
+B, R = 32, 150
+MARKERS = ("launch_queue_ms", "h2d_device_ms", "step_device_ms")
+
+
+@pytest.fixture(scope="module")
+def world():
+    ref = random_reference(60_000, np.random.default_rng(5))
+    sim = simulate_pairs(ref, 4 * B, ReadSimConfig(sub_rate=0.01), seed=9)
+    return ref, sim
+
+
+def _mapper(ref, device="cpu"):
+    return Mapper.build(ref, SeedMapConfig(table_bits=14), PipelineConfig(),
+                        ExecutionConfig(device=device, stream_batch=B))
+
+
+def _batches(sim, n=3, tail=None):
+    out = [(sim.reads1[k * B:(k + 1) * B], sim.reads2[k * B:(k + 1) * B])
+           for k in range(n)]
+    if tail is not None:
+        out.append((sim.reads1[:tail], sim.reads2[:tail]))
+    return out
+
+
+def test_every_span_once_a_batch_and_exact_counters(world):
+    ref, sim = world
+    mapper = _mapper(ref)
+    seen = []
+    sr = mapper.map_stream(iter(_batches(sim, 3, tail=7)),
+                           on_result=lambda i, r, n: seen.append(i))
+    tr = sr.trace
+    n = sr.n_batches
+    assert n == 4 and seen == [0, 1, 2, 3]
+    assert spans.recent()[-1] is tr
+    assert tr["profiled"] is False and tr["markers"] is None
+    assert (tr["batches"], tr["items"]) == (n, 3 * B + 7)
+    # the reads' bytes, the ragged tail padded to the stream shape
+    assert tr["h2d_bytes"] == 2 * B * R * n
+    assert tr["staged_bytes"] == 0          # nothing is pinned on the CPU
+    assert tr["launches"] == {}             # the plain path launches none
+    got = tr["spans"]
+    assert set(got) == set(spans.SPANS)
+    for name, s in got.items():
+        # one more pull than batches: the last finds the iterator empty
+        want = 1 if name in ("stream", "stream.drain") else \
+            n + 1 if name == "stream.pull" else n
+        assert s["count"] == want, name
+        assert s["parent"] == spans.SPANS[name], name
+        assert 0 <= s["self_ms"] <= s["total_ms"], name
+    for parent in ("stream", "step"):
+        kids = [s["total_ms"] for k, s in got.items()
+                if spans.SPANS[k] == parent]
+        assert sum(kids) <= got[parent]["total_ms"]
+        assert got[parent]["self_ms"] == pytest.approx(
+            got[parent]["total_ms"] - sum(kids), abs=1e-6)
+
+
+def test_no_span_outside_a_stream(world):
+    ref, sim = world
+    mapper = _mapper(ref)
+    before = spans.recent()
+    mapper.map(sim.reads1[:B], sim.reads2[:B])
+    assert spans.recent() == before
+    assert spans.span("step.front") is spans.span("step")
+
+
+def test_recent_keeps_the_last_streams(world):
+    ref, sim = world
+    mapper = _mapper(ref)
+    for k in range(spans.RECENT + 2):
+        mapper.map_stream(iter(_batches(sim, 1 + k % 2)))
+    got = spans.recent()
+    assert len(got) == spans.RECENT
+    assert [s["batches"] for s in got] == [1 + k % 2 for k in
+                                           range(2, spans.RECENT + 2)]
+
+
+def test_the_profiler_holds_the_spans_nested_with_batch_ids(world):
+    from torch.profiler import ProfilerActivity, profile
+
+    ref, sim = world
+    mapper = _mapper(ref)
+    for _ in range(2):   # a process's first record_function sets up ~ms
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sr = mapper.map_stream(iter(_batches(sim, 3)))
+    tr = sr.trace
+    assert tr["profiled"] is True
+    ev = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            ev.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    (stream,) = ev["stream"]
+    assert abs(stream[0] - tr["start_ns"]) < 1_000_000
+    assert len(ev["stream.drain"]) == 1
+    for name, parent in spans.SPANS.items():
+        if name in ("stream", "stream.drain", "stream.on_result"):
+            continue
+        for b in range(3):
+            (p0, p1), = (stream,) if parent == "stream" else \
+                ev[f"{parent}#{b}"]
+            (s0, s1), = ev[f"{name}#{b}"]
+            assert p0 <= s0 <= s1 <= p1, (name, b)
+    assert f"step#{3}" not in ev
+
+
+def test_no_record_function_without_the_profiler(world, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    ref, sim = world
+    mapper = _mapper(ref)
+    entered = []
+    real = spans.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(spans, "record_function", counting)
+    mapper.map_stream(iter(_batches(sim, 2)))
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        sr = mapper.map_stream(iter(_batches(sim, 2)))
+    assert len(entered) == sum(
+        s["count"] for s in sr.trace["spans"].values())
+    assert entered[0] == "stream" and "step.front#1" in entered
+
+
+class _Card:
+    """`kernels._cuda.TimingEvents` on a scripted card: each recorded event
+    runs at the next of ``runs`` (ns, on the host's clock) once the test
+    lets the card reach it (``done_until``)."""
+
+    NOT_READY = 600
+
+    def __init__(self, runs):
+        self.runs = list(runs)
+        self.done_until = -1
+        self.host = 0
+        self.t = {}
+        self.made = self.freed = 0
+
+    def time_ns(self):
+        return self.host
+
+    def create(self, device):
+        self.made += 1
+        return self.made
+
+    def destroy(self, ev):
+        self.freed += 1
+
+    def record(self, ev, stream):
+        self.t[ev] = self.runs.pop(0)
+
+    def synchronize(self, ev):
+        self.done_until = max(self.done_until, self.t[ev])
+
+    def elapsed(self, a, b):
+        assert max(self.t[a], self.t[b]) <= self.done_until
+        return (self.t[b] - self.t[a]) / 1e6
+
+    def times(self, prev, m0, m1, m2):
+        if self.t[m2] > self.done_until:
+            return None
+        return (self.elapsed(prev, m0), self.elapsed(m0, m1),
+                self.elapsed(m1, m2))
+
+
+def _markers(monkeypatch, card):
+    monkeypatch.setattr(spans, "time_ns", card.time_ns)
+    monkeypatch.setattr(spans, "MARKER_EVERY", 1)
+    monkeypatch.setattr(spans._Markers, "_current_stream", lambda self: 7)
+    return spans._Markers(torch.device("cuda", 0), 0, card)
+
+
+def _batch(mk, batch=0):
+    mk.copy_start(batch)
+    mk.copy_end()
+    mk.step_end()
+
+
+def test_one_batch_in_marker_every_is_marked(monkeypatch):
+    """Batch 0 and one in MARKER_EVERY of the rest, as often in each
+    residue of a small period (a pool cycled by the caller)."""
+    card = _Card(range(1, 3 * 8000 + 1))
+    card.done_until = 10**18
+    mk = _markers(monkeypatch, card)
+    monkeypatch.setattr(spans, "MARKER_EVERY", 8)
+    marked = []
+    for b in range(8000):
+        mk.copy_start(b)
+        if mk.cur is not None:
+            marked.append(b)
+        mk.copy_end()
+        mk.step_end()
+    assert marked[0] == 0 and 0.12 < len(marked) / 8000 < 0.13
+    for period in (2, 3, 4, 5, 16):
+        for r in range(period):
+            share = sum(b % period == r for b in marked) / len(marked)
+            assert abs(share - 1 / period) < 0.01, (period, r)
+
+
+def test_markers_place_the_card_on_the_host_clock(monkeypatch):
+    """Three batches enqueued at 0, 10 and 20 ms on the host, run by the
+    card at the times below: the queue waits, copies and steps come out
+    exact, nothing is resolved before it ran, and every event is freed."""
+    ms = 1_000_000
+    # per batch M0, M1, M2; then Z
+    card = _Card([5 * ms, 7 * ms, 11 * ms,
+                  12 * ms, 14 * ms, 19 * ms,
+                  22 * ms, 23 * ms, 30 * ms,
+                  31 * ms])
+    mk = _markers(monkeypatch, card)
+    for host in (0, 10 * ms, 20 * ms):
+        card.host = host
+        _batch(mk)
+    assert mk.n == 0                    # nothing ran yet: nothing resolved
+    card.done_until = 19 * ms           # the card finished batches 0 and 1
+    card.host = 21 * ms
+    mk.resolve()
+    assert mk.n == 2 and len(mk.flight) == 1
+    card.host = 31 * ms                 # Z runs at 31 ms, seen at once
+    mk.anchor()
+    out = mk.out
+    assert (out["batches"], out["skipped"]) == (3, 0)
+    # M0 ran at 5, 12, 22 ms against host stamps 0, 10, 20 ms
+    assert out["launch_queue_ms"] == pytest.approx((5 + 2 + 2) / 3)
+    assert out["h2d_device_ms"] == pytest.approx((2 + 2 + 1) / 3)
+    assert out["step_device_ms"] == pytest.approx((4 + 5 + 7) / 3)
+    assert out["anchor_us"] == 0
+    mk.close()
+    assert card.freed == card.made == 10
+
+
+def test_a_full_marker_pool_skips_and_counts(monkeypatch):
+    ms = 1_000_000
+    card = _Card([k * ms for k in range(1, 40)])
+    monkeypatch.setattr(spans, "MARKER_POOL", 2)
+    mk = _markers(monkeypatch, card)
+    for _ in range(5):                  # the card runs nothing meanwhile
+        _batch(mk)
+    assert len(mk.flight) == 2 and mk.skipped == 3
+    card.done_until = 10**18            # the card catches up
+    _batch(mk)                          # resolves both, reuses a triple
+    assert mk.n == 2 and len(mk.free) == 0 and card.made == 6
+    card.host = 39 * ms
+    mk.anchor()
+    assert (mk.out["batches"], mk.out["skipped"]) == (3, 3)
+    mk.close()
+    assert card.freed == card.made == 7
+
+
+def _summary(profiled, batches, value):
+    return {"profiled": profiled, "batches": batches,
+            "markers": None if value is None else
+            {"batches": batches, "skipped": 0,
+             **{k: value + i for i, k in enumerate(MARKERS)}}}
+
+
+@pytest.mark.parametrize("traced_batches", [32, 500])
+def test_readers_take_the_measured_window(monkeypatch, traced_batches):
+    """The untraced stream with the window's batch count, not the traced
+    one after it (also where both hold as many batches), nor the
+    warm-up."""
+    cell = manifest.find_cell("pe150-775m.illumina")
+    readers = {m.name: m.reader for m in cell.per_layer
+               if m.name in MARKERS}
+    assert set(readers) == set(MARKERS)
+    recent = [_summary(False, 8, 1.0), _summary(False, 500, 10.0),
+              _summary(True, traced_batches, 100.0)]
+    monkeypatch.setattr(spans, "recent", lambda: list(recent))
+    run = {"window": {"batches": 500}}
+    assert [readers[k].read(run) for k in MARKERS] == [10.0, 11.0, 12.0]
+    # without markers (the CPU), or without the window's stream: nothing
+    recent[1] = _summary(False, 500, None)
+    assert [readers[k].read(run) for k in MARKERS] == [None] * 3
+    recent[1] = _summary(False, 499, 10.0)
+    assert [readers[k].read(run) for k in MARKERS] == [None] * 3
+
+
+def test_the_cpu_run_reports_no_marker_metric():
+    cell = manifest.find_cell("pe250-775m.illumina")
+    readers = [m.reader for m in cell.per_layer if m.name in MARKERS]
+    ref = random_reference(30_000, np.random.default_rng(1))
+    sim = simulate_pairs(ref, B, ReadSimConfig(), seed=2)
+    sr = _mapper(ref).map_stream(iter(_batches(sim, 1)))
+    run = {"window": {"batches": sr.n_batches}}
+    assert [r.read(run) for r in readers] == [None] * 3
+
+
+@pytest.mark.cuda
+def test_markers_on_the_card(world):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    ref, sim = world
+    mapper = _mapper(ref, "cuda")
+    pageable = _batches(sim, 4)
+    pinned = [tuple(torch.from_numpy(np.ascontiguousarray(r)).pin_memory()
+                    .numpy() for r in item) for item in pageable]
+    for batches, staged in ((pageable, True), (pinned, False)):
+        tr = mapper.map_stream(iter(batches)).trace
+        m = tr["markers"]
+        assert m["skipped"] == 0 and 1 <= m["batches"] <= 4
+        assert m["launch_queue_ms"] >= 0 and m["h2d_device_ms"] > 0
+        assert m["step_device_ms"] > 0
+        assert tr["h2d_bytes"] == 2 * B * R * 4
+        assert tr["staged_bytes"] == (tr["h2d_bytes"] if staged else 0)
+        assert sum(tr["launches"].values()) > 0
