@@ -16,16 +16,18 @@ call (`Mapper._stream`, `engine.stream.run_stream`).  It records, always:
   traced window holds the program's spans, nested, on the clock of the
   card's activity.  With the profiler off no ``record_function`` is
   entered.
-* **device markers** on CUDA: three timing events on the current stream
-  of one batch in `MARKER_EVERY`, M0 before the reads' copies to the
-  card, M1 after them (the step starts), M2 after the step
-  (`kernels._cuda.TimingEvents`: one C call each).  They are resolved as
-  they complete, each marked batch's M0 read against the one before's,
-  from at most `MARKER_POOL` batches in flight (a batch that finds the
-  pool full is skipped and counted), and never waited on.  After the
-  stream's final sync one anchor event Z is recorded and synchronised:
-  ``h_Z``, the host clock when Z was seen done, places every marker on
-  the host clock, ``d(M) = h_Z - elapsed(M, Z)``.
+* **device markers** on CUDA: five timing events of one batch in
+  `MARKER_EVERY` on the stream's two streams (`StreamTrace.streams`),
+  M0 and M1 around the reads' copies on the copy stream, R on the
+  compute stream just before it waits for those copies and S just after
+  (the step starts), M2 after the step (`kernels._cuda.TimingEvents`:
+  one C call each).  They are resolved as they complete, each marked
+  batch's M0 read against the one before's, from at most `MARKER_POOL`
+  batches in flight (a batch that finds the pool full is skipped and
+  counted), and never waited on.  After the stream's final sync one
+  anchor event Z is recorded and synchronised: ``h_Z``, the host clock
+  when Z was seen done, places every marker on the host clock,
+  ``d(M) = h_Z - elapsed(M, Z)``.
 * **counters**: batches, items, the reads' bytes copied to the card
   (``h2d_bytes``), the bytes ``pin_memory()`` had to copy on the host
   first because a read array was pageable (``staged_bytes``), and the
@@ -54,7 +56,8 @@ SPANS = {
     "stream.pull": "stream",         # waiting on the caller's iterator
                                      # (once more than the batches)
     "stream.stage": "stream",        # split, pad, pin: no launch
-    "stream.h2d": "stream",          # enqueueing the reads' copies
+    "stream.h2d": "stream",          # enqueueing the reads' copies (on
+                                     # the copy stream, on CUDA)
     "step": "stream",                # the lane's step, launched
     "step.front": "step",            # revcomp and steps 1-3
     "step.light": "step",            # step 4
@@ -66,12 +69,12 @@ SPANS = {
 }
 #: spans outside any batch (no batch index)
 _UNBATCHED = ("stream", "stream.drain")
-#: marker triples in flight at most (the launch queue holds ~10 batches)
+#: marked batches in flight at most (the launch queue holds ~6 batches)
 MARKER_POOL = 256
 #: one batch in this many carries markers, batch 0 and those whose index
 #: a multiplicative hash places in the lowest 1/MARKER_EVERY (spread over
-#: any period of the input).  A marked batch costs the host ~22 us on the
-#: H100's host (three event records, ~3 us each, and one read of three
+#: any period of the input).  A marked batch costs the host ~28 us on the
+#: H100's host (five event records, ~3 us each, and one read of four
 #: elapsed times, ~13 us), so marking every batch would pass the ~20 us a
 #: batch the recorder may cost.
 MARKER_EVERY = 8
@@ -143,12 +146,13 @@ class _Span:
 
 
 class _Markers:
-    """The three timing events a batch on ``device``, resolved as they
-    complete; ``events`` is the library's `_cuda.TimingEvents`."""
+    """The five timing events a marked batch on ``device``, resolved as
+    they complete; ``events`` is the library's `_cuda.TimingEvents`."""
 
     __slots__ = ("events", "device", "base_ns", "free", "flight", "last",
-                 "cur", "sid", "stream", "n", "skipped", "chain_ns",
-                 "wait_ns", "h2d_ms", "step_ms", "out")
+                 "staged", "cur", "compute", "copy", "n", "skipped",
+                 "chain_ns", "wait_ns", "h2d_ms", "exposed_ms", "step_ms",
+                 "out")
 
     def __init__(self, device: torch.device, base_ns: int, events):
         self.events = events
@@ -157,44 +161,52 @@ class _Markers:
         self.free: list = []
         self.flight: collections.deque = collections.deque()
         self.last = None         # the newest resolved batch's events
-        self.cur = None          # this batch's (events, h(M0))
-        self.sid = self.stream = None
+        # each batch copied and not yet stepped: (events, h(M0)), or None
+        # where unmarked; the batch being stepped's
+        self.staged: collections.deque = collections.deque()
+        self.cur = None
+        self.compute = self.copy = None      # the two streams' handles
         self.n = self.skipped = 0
         # d(M0) of the newest resolved batch less the first's, and the
         # sum of d(M0) - h(M0) less d(first M0) - base_ns, in ns
         self.chain_ns = self.wait_ns = 0.0
-        self.h2d_ms = self.step_ms = 0.0
+        self.h2d_ms = self.exposed_ms = self.step_ms = 0.0
         self.out = None
 
-    def _current_stream(self) -> int:
-        # the stream's id is cheap to read (~0.2 us); its handle, through
-        # torch.cuda.current_stream, costs ~7 us, so it is read on change
-        sid = torch._C._cuda_getCurrentStream(self.device.index)[0]
-        if sid != self.sid:
-            self.sid = sid
-            self.stream = torch.cuda.current_stream(self.device).cuda_stream
-        return self.stream
-
     def copy_start(self, batch: int) -> None:
+        self.staged.append(self._mark(batch))
+
+    def _mark(self, batch: int):
         if (batch * _HASH) % 2**32 >= 2**32 // MARKER_EVERY:
-            return
+            return None
         if self.flight:
             self.resolve()
         if len(self.flight) >= MARKER_POOL:
             self.skipped += 1
-            return
+            return None
         ev = self.free.pop() if self.free else tuple(
-            self.events.create(self.device.index) for _ in range(3))
-        self.events.record(ev[0], self._current_stream())
-        self.cur = (ev, time_ns())
+            self.events.create(self.device.index) for _ in range(5))
+        self.events.record(ev[0], self.copy)
+        return ev, time_ns()
+
+    def _record(self, k: int, stream) -> None:
+        if self.cur is not None:
+            self.events.record(self.cur[0][k], stream)
 
     def copy_end(self) -> None:
-        if self.cur is not None:
-            self.events.record(self.cur[0][1], self.stream)
+        if self.staged[-1] is not None:
+            self.events.record(self.staged[-1][0][1], self.copy)
+
+    def wait_start(self) -> None:
+        self.cur = self.staged.popleft()
+        self._record(2, self.compute)
+
+    def wait_end(self) -> None:
+        self._record(3, self.compute)
 
     def step_end(self) -> None:
         if self.cur is not None:
-            self.events.record(self.cur[0][2], self.stream)
+            self._record(4, self.compute)
             self.flight.append(self.cur)
             self.cur = None
 
@@ -211,7 +223,8 @@ class _Markers:
             self.chain_ns += got[0] * 1e6
             self.wait_ns += self.chain_ns - (h0 - self.base_ns)
             self.h2d_ms += got[1]
-            self.step_ms += got[2]
+            self.exposed_ms += got[2]
+            self.step_ms += got[3]
             self.n += 1
             if self.last is not None:
                 self.free.append(self.last)
@@ -227,7 +240,7 @@ class _Markers:
         z = self.events.create(self.device.index)
         try:
             t0 = time_ns()
-            self.events.record(z, self._current_stream())
+            self.events.record(z, self.compute)
             self.events.synchronize(z)
             h_z = time_ns()
             self.resolve()
@@ -240,9 +253,10 @@ class _Markers:
         n = self.n
         self.out = {
             "batches": n, "skipped": self.skipped, "every": MARKER_EVERY,
-            # the means of d(M0) - h(M0), M1 - M0 and M2 - M1
+            # the means of d(M0) - h(M0), M1 - M0, S - R and M2 - S
             "launch_queue_ms": (first_ns + self.wait_ns / n) / 1e6,
             "h2d_device_ms": self.h2d_ms / n,
+            "h2d_exposed_ms": self.exposed_ms / n,
             "step_device_ms": self.step_ms / n,
             # how far h_Z may lie after Z ran (record to seen done)
             "anchor_us": (h_z - t0) / 1e3,
@@ -251,12 +265,12 @@ class _Markers:
     def close(self) -> None:
         """Free every event."""
         held = list(self.free) + [ev for ev, _ in self.flight]
+        held += [m[0] for m in (*self.staged, self.cur) if m is not None]
         if self.last is not None:
             held.append(self.last)
-        if self.cur is not None:
-            held.append(self.cur[0])
         self.free, self.last, self.cur = [], None, None
         self.flight.clear()
+        self.staged.clear()
         for ev in held:
             for e in ev:
                 self.events.destroy(e)
@@ -306,6 +320,12 @@ class StreamTrace:
                 self.markers.close()
 
     # -- the markers of the current batch (no-ops off CUDA) ----------------
+    def streams(self, compute: int, copy: int) -> None:
+        """The handles of the stream's compute and copy streams, which the
+        markers are recorded on."""
+        if self.markers is not None:
+            self.markers.compute, self.markers.copy = compute, copy
+
     def copy_start(self) -> None:
         if self.markers is not None:
             self.markers.copy_start(self.batch)
@@ -313,6 +333,14 @@ class StreamTrace:
     def copy_end(self) -> None:
         if self.markers is not None:
             self.markers.copy_end()
+
+    def wait_start(self) -> None:
+        if self.markers is not None:
+            self.markers.wait_start()
+
+    def wait_end(self) -> None:
+        if self.markers is not None:
+            self.markers.wait_end()
 
     def step_end(self) -> None:
         if self.markers is not None:

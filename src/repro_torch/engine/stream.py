@@ -3,10 +3,13 @@
 Each batch is padded to the stream shape on the host, copied to the
 device from pinned memory without blocking, and mapped with eager kernel
 launches on the current stream; the host goes on to pull and pad the next
-batch while the device works.  Consumers see results one batch late
-(``on_result`` for batch k fires after batch k+1 was dispatched).  The
-stage totals stay on the device; the host syncs once, at the end.  The
-loop's spans, markers and counters go to the stream's
+batch while the device works.  On CUDA the copies run on a stream of
+their own into a ring of two device slots (`CopyRing`), and batch k+1's
+copies are enqueued before batch k's step, so they run on the copy
+engine while that step runs on the SMs.  Consumers see results one batch
+late (``on_result`` for batch k fires after batch k+1 was dispatched).
+The stage totals stay on the device; the host syncs once, at the end.
+The loop's spans, markers and counters go to the stream's
 `engine.spans.StreamTrace`.
 """
 from __future__ import annotations
@@ -113,29 +116,143 @@ def to_device(arr, device: torch.device) -> torch.Tensor:
     return pin(arr, device)[0].to(device, non_blocking=True)
 
 
+class CopyRing:
+    """The device slots a stream copies its reads into, and the events
+    that order the copies against the steps that read them.
+
+    Batch k takes slot k % 2.  The copy stream waits on ``released[k %
+    2]``, which the compute stream recorded once ``dispatch(k - 2)``
+    returned (the step, its stage counts and any ``reduce_fn``: nothing
+    the consumer is handed holds the reads), copies the reads into the
+    slot and records ``copied[k % 2]``; the compute stream waits on that
+    before the step (`take`).  The host never waits.  A slot is made, on
+    the compute stream, at the first batch of its shape and dtype; making
+    one records ``released`` at once, after every step launched so far,
+    which covers the slot memory it may take over.
+
+    ``events`` makes, records and waits on events by handle
+    (`kernels._cuda.TimingEvents`); ``compute`` and ``copy`` are the
+    streams (objects with ``cuda_stream``), and ``use(stream)`` makes one
+    the current stream, so that the copies run on it and a pinned staging
+    block's use is recorded there (the caching host allocator reuses it
+    only after its copy ran).  `close` makes ``outer``, the caller's
+    current stream (``compute`` unless another device was current), the
+    current one again.
+    """
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device, events, compute, copy, use,
+                 outer=None):
+        self.device, self.events, self.use = device, events, use
+        self.compute, self.copy = compute, copy
+        self.outer = compute if outer is None else outer
+        self.h_compute, self.h_copy = compute.cuda_stream, copy.cuda_stream
+        self.copied, self.released = (
+            [events.create(device.index) for _ in range(self.SLOTS)]
+            for _ in range(2))
+        self.slots: list = [None] * self.SLOTS
+        self.copies = self.taken = 0
+
+    @classmethod
+    def on(cls, device: torch.device):
+        """A ring on ``device``'s current stream and a new copy stream, or
+        None off CUDA."""
+        if device.type != "cuda":
+            return None
+        from repro_torch.kernels import _cuda
+        compute = torch.cuda.current_stream(device)
+        return cls(compute.device, _cuda.TimingEvents(), compute,
+                   torch.cuda.Stream(compute.device), torch.cuda.set_stream,
+                   torch.cuda.current_stream())
+
+    def put(self, host, trace) -> None:
+        """Enqueue the next batch's copies from the host tensors ``host``
+        into its slot, on the copy stream; ``trace`` gets the markers M0
+        and M1 around them."""
+        s = self.copies % self.SLOTS
+        self.copies += 1
+        ev = self.events
+        slot = self.slots[s]
+        if slot is None or any(d.shape != h.shape or d.dtype != h.dtype
+                               for d, h in zip(slot, host)):
+            slot = self.slots[s] = [
+                torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                for h in host]
+            ev.record(self.released[s], self.h_compute)
+        ev.wait(self.h_copy, self.released[s])
+        self.use(self.copy)
+        try:
+            trace.copy_start()
+            with trace.spans["stream.h2d"]:
+                for d, h in zip(slot, host):
+                    d.copy_(h, non_blocking=True)
+            trace.copy_end()
+            ev.record(self.copied[s], self.h_copy)
+        finally:
+            self.use(self.compute)
+
+    def take(self, trace) -> list:
+        """The oldest batch put and not yet taken: the compute stream's
+        wait for its copies (``trace`` gets R and S around it), and its
+        slot's tensors."""
+        s = self.taken % self.SLOTS
+        self.taken += 1
+        trace.wait_start()
+        self.events.wait(self.h_compute, self.copied[s])
+        trace.wait_end()
+        return self.slots[s]
+
+    def release(self) -> None:
+        """After the dispatch of the batch last taken: its slot may be
+        copied into again once the compute stream got here."""
+        self.events.record(self.released[(self.taken - 1) % self.SLOTS],
+                           self.h_compute)
+
+    def close(self) -> None:
+        """Free the slots and the events.  The compute stream first waits
+        for the last copies, so the slots' memory returns to its pool
+        only after them (a no-op after the stream's final sync)."""
+        for ev in self.copied:
+            self.events.wait(self.h_compute, ev)
+        self.use(self.outer)
+        self.slots = [None] * self.SLOTS
+        for ev in self.copied + self.released:
+            self.events.destroy(ev)
+
+
 def run_stream(dispatch, batches, trace, device: torch.device, *,
                stream_batch=None, on_result=None, drain=None,
                n_arrays: int = 2):
     """Drive ``dispatch(*reads, n, aux) -> result`` over host batches of
-    ``n_arrays`` read arrays each, the reads already copied to ``device``.
+    ``n_arrays`` read arrays each, the reads already copied to ``device``
+    (on CUDA into a `CopyRing` slot, which ``dispatch`` reads on the
+    compute stream and must not hand on).
 
     The first batch fixes the stream shape unless ``stream_batch`` pins
-    it.  ``drain()`` waits for the device once, after the last dispatch,
-    and returns what the caller fetches then.  ``trace`` (an active
-    `engine.spans.StreamTrace`) gets the loop's spans, the markers around
-    each batch's copies (M0, M1; ``dispatch`` records M2) and the
-    counters.  Returns ``(n_items, n_batches, seconds, drained)``.
+    it.  On CUDA batch k + 1 is pulled and its copies enqueued before
+    batch k is dispatched, so they run beside batch k's step even where
+    the host, not the card, sets the pace.  ``drain()`` waits for the
+    device once, after the last dispatch, and returns what the caller
+    fetches then.  ``trace`` (an active `engine.spans.StreamTrace`) gets
+    the loop's spans, the markers around each batch's copies and the
+    compute stream's wait for them (M0, M1, R, S; ``dispatch`` records
+    M2) and the counters.  Returns ``(n_items, n_batches, seconds,
+    drained)``.
     """
     spans = trace.spans
-    prev = None
-    t0 = None
     it = iter(batches)
-    for idx in itertools.count():
+    t0 = None
+
+    def pull(idx):
+        """Pull and stage batch ``idx``: ``(n, aux, host tensors)``, or
+        None once the iterator is done."""
+        nonlocal t0, stream_batch
         trace.batch = idx
         with spans["stream.pull"]:
             item = next(it, _END)
         if item is _END:
-            break
+            return None
         if t0 is None:   # host-side generation of batch 0 is set-up
             t0 = time.time()
         with spans["stream.stage"]:
@@ -150,24 +267,50 @@ def run_stream(dispatch, batches, trace, device: torch.device, *,
                 trace.staged_bytes += staged
                 trace.h2d_bytes += h.nbytes
             aux = tree_map(lambda a: pad_tail(a, stream_batch), aux)
-        trace.copy_start()
-        with spans["stream.h2d"]:
-            on_dev = [h.to(device, non_blocking=True) for h in host]
-        trace.copy_end()
-        res = dispatch(*on_dev, n, aux)
-        trace.items += n
-        trace.batches += 1
+        return n, aux, host
+
+    prev = None
+    ring = CopyRing.on(device)
+    try:
+        cur = pull(0)
+        if ring is not None:
+            trace.streams(ring.h_compute, ring.h_copy)
+            if cur is not None:
+                ring.put(cur[2], trace)
+        for idx in itertools.count():
+            if cur is None:
+                break
+            n, aux, host = cur
+            if ring is None:
+                with spans["stream.h2d"]:
+                    on_dev = [h.to(device, non_blocking=True) for h in host]
+            else:
+                cur = pull(idx + 1)
+                if cur is not None:
+                    ring.put(cur[2], trace)
+                trace.batch = idx
+                on_dev = ring.take(trace)
+            res = dispatch(*on_dev, n, aux)
+            if ring is not None:
+                ring.release()
+            trace.items += n
+            trace.batches += 1
+            if prev is not None and on_result is not None:
+                trace.batch = prev[0]
+                with spans["stream.on_result"]:
+                    on_result(*prev)
+            prev = (idx, res, n)
+            if ring is None:
+                cur = pull(idx + 1)
         if prev is not None and on_result is not None:
             trace.batch = prev[0]
             with spans["stream.on_result"]:
                 on_result(*prev)
-        prev = (idx, res, n)
-    if prev is not None and on_result is not None:
-        trace.batch = prev[0]
-        with spans["stream.on_result"]:
-            on_result(*prev)
-    with spans["stream.drain"]:
-        drained = None if drain is None else drain()
-        trace.anchor()
+        with spans["stream.drain"]:
+            drained = None if drain is None else drain()
+            trace.anchor()
+    finally:
+        if ring is not None:
+            ring.close()
     seconds = 0.0 if t0 is None else time.time() - t0
     return trace.items, trace.batches, seconds, drained

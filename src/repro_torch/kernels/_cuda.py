@@ -255,12 +255,13 @@ def launch_counts() -> dict[str, int]:
 
 
 class TimingEvents:
-    """The library's timing events (``csrc/markers.cu``) as plain calls:
-    an event is an integer handle, made on a device and freed with
-    `destroy`; a stream is a ``cudaStream_t`` as an integer.  A CUDA error
-    raises.  One C call each, a few microseconds of host where
-    ``torch.cuda.Event`` spends 3-10 (the marker path of `engine.spans`
-    runs three records and one read a batch)."""
+    """The library's events (``csrc/markers.cu``) as plain calls: an event
+    is an integer handle, made on a device and freed with `destroy`; a
+    stream is a ``cudaStream_t`` as an integer.  A CUDA error raises.  One
+    C call each, a few microseconds of host where ``torch.cuda.Event``
+    spends 3-10 (the marker path of `engine.spans` runs five records and
+    one read a marked batch, the copy ring of `engine.stream` two records
+    and two waits every batch)."""
 
     NOT_READY = 600          # cudaErrorNotReady
 
@@ -269,16 +270,18 @@ class TimingEvents:
         sigs = {"repro_event_create": [INT, ctypes.POINTER(PTR)],
                 "repro_event_destroy": [PTR],
                 "repro_event_record": [PTR, PTR],
+                "repro_stream_wait": [PTR, PTR],
                 "repro_event_synchronize": [PTR],
-                "repro_marker_times": [PTR, PTR, PTR, PTR, PTR],
+                "repro_marker_times": [PTR] * 7,
                 "repro_event_elapsed": [PTR, PTR, PTR]}
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, INT
         self._lib = lib
         self._record = lib.repro_event_record
+        self._wait = lib.repro_stream_wait
         self._times = lib.repro_marker_times
-        self._out = (ctypes.c_float * 3)()
+        self._out = (ctypes.c_float * 4)()
         self._out_p = ctypes.cast(self._out, PTR)
 
     def _check(self, err: int, what: str) -> None:
@@ -300,20 +303,27 @@ class TimingEvents:
         if err:
             self._check(err, "event record")
 
+    def wait(self, stream: int, ev: int) -> None:
+        """``stream`` runs what is enqueued on it from now on only after
+        ``ev`` ran."""
+        err = self._wait(stream, ev)
+        if err:
+            self._check(err, "stream wait")
+
     def synchronize(self, ev: int) -> None:
         self._check(self._lib.repro_event_synchronize(ev),
                     "event synchronize")
 
-    def times(self, prev: int, m0: int, m1: int, m2: int):
-        """ms from ``prev`` to ``m0``, ``m0`` to ``m1`` and ``m1`` to
-        ``m2`` once ``m2`` ran, else None."""
-        err = self._times(prev, m0, m1, m2, self._out_p)
+    def times(self, prev: int, m0: int, m1: int, r: int, s: int, m2: int):
+        """ms from ``prev`` to ``m0``, ``m0`` to ``m1``, ``r`` to ``s`` and
+        ``s`` to ``m2`` once ``m2`` ran, else None."""
+        err = self._times(prev, m0, m1, r, s, m2, self._out_p)
         if err == self.NOT_READY:
             return None
         if err:
             self._check(err, "marker read")
         out = self._out
-        return out[0], out[1], out[2]
+        return out[0], out[1], out[2], out[3]
 
     def elapsed(self, a: int, b: int) -> float:
         """ms from ``a`` to ``b``, both of which ran."""

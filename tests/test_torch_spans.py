@@ -28,7 +28,8 @@ if str(ROOT) not in sys.path:
 from portbench import manifest  # noqa: E402
 
 B, R = 32, 150
-MARKERS = ("launch_queue_ms", "h2d_device_ms", "step_device_ms")
+MARKERS = ("launch_queue_ms", "h2d_device_ms", "step_device_ms",
+           "h2d_exposed_ms")
 
 
 @pytest.fixture(scope="module")
@@ -189,39 +190,59 @@ class _Card:
         assert max(self.t[a], self.t[b]) <= self.done_until
         return (self.t[b] - self.t[a]) / 1e6
 
-    def times(self, prev, m0, m1, m2):
+    def times(self, prev, m0, m1, r, s, m2):
         if self.t[m2] > self.done_until:
             return None
         return (self.elapsed(prev, m0), self.elapsed(m0, m1),
-                self.elapsed(m1, m2))
+                self.elapsed(r, s), self.elapsed(s, m2))
+
+
+COMPUTE, COPY = 7, 8
+
+
+class _Streams(_Card):
+    """`_Card` that also notes the stream each event is recorded on."""
+
+    def __init__(self, runs):
+        super().__init__(runs)
+        self.on = {}
+
+    def record(self, ev, stream):
+        super().record(ev, stream)
+        self.on[ev] = stream
 
 
 def _markers(monkeypatch, card):
     monkeypatch.setattr(spans, "time_ns", card.time_ns)
     monkeypatch.setattr(spans, "MARKER_EVERY", 1)
-    monkeypatch.setattr(spans._Markers, "_current_stream", lambda self: 7)
-    return spans._Markers(torch.device("cuda", 0), 0, card)
+    mk = spans._Markers(torch.device("cuda", 0), 0, card)
+    mk.compute, mk.copy = COMPUTE, COPY
+    return mk
 
 
 def _batch(mk, batch=0):
     mk.copy_start(batch)
     mk.copy_end()
+    mk.wait_start()
+    mk.wait_end()
     mk.step_end()
 
 
 def test_one_batch_in_marker_every_is_marked(monkeypatch):
     """Batch 0 and one in MARKER_EVERY of the rest, as often in each
     residue of a small period (a pool cycled by the caller)."""
-    card = _Card(range(1, 3 * 8000 + 1))
+    card = _Card(range(1, 5 * 8000 + 1))
     card.done_until = 10**18
     mk = _markers(monkeypatch, card)
     monkeypatch.setattr(spans, "MARKER_EVERY", 8)
     marked = []
     for b in range(8000):
         mk.copy_start(b)
-        if mk.cur is not None:
+        if mk.staged[-1] is not None:
             marked.append(b)
         mk.copy_end()
+        mk.wait_start()
+        mk.wait_end()
         mk.step_end()
     assert marked[0] == 0 and 0.12 < len(marked) / 8000 < 0.13
     for period in (2, 3, 4, 5, 16):
@@ -231,35 +252,62 @@ def test_one_batch_in_marker_every_is_marked(monkeypatch):
 
 
 def test_markers_place_the_card_on_the_host_clock(monkeypatch):
-    """Three batches enqueued at 0, 10 and 20 ms on the host, run by the
-    card at the times below: the queue waits, copies and steps come out
-    exact, nothing is resolved before it ran, and every event is freed."""
+    """Three batches whose copies are enqueued at 0, 1 and 10 ms on the
+    host, each batch's copies before the step of the batch before (as the
+    stream issues them), run by the card at the times below: the queue
+    waits, copies, exposed copies and steps come out exact, each marker
+    lies on its stream, nothing is resolved before it ran, and every event
+    is freed.  Batch 0's step waits 1 ms for its copy, batch 1's copy ran
+    before its step was reached, batch 2's step waits for the 2 ms of its
+    copy that outlast batch 1's step."""
     ms = 1_000_000
-    # per batch M0, M1, M2; then Z
-    card = _Card([5 * ms, 7 * ms, 11 * ms,
-                  12 * ms, 14 * ms, 19 * ms,
-                  22 * ms, 23 * ms, 30 * ms,
-                  31 * ms])
+    # in the order recorded: copy 0 (M0, M1 on the copy stream), copy 1,
+    # step 0 (R, S, M2 on the compute stream), copy 2, step 1, step 2; Z
+    card = _Streams([1 * ms, 3 * ms,
+                     3 * ms, 5 * ms,
+                     2 * ms, 3 * ms, 7 * ms,
+                     12 * ms, 22 * ms,
+                     11 * ms, 11 * ms, 16 * ms,
+                     20 * ms, 22 * ms, 29 * ms,
+                     30 * ms])
     mk = _markers(monkeypatch, card)
-    for host in (0, 10 * ms, 20 * ms):
+
+    def copy(host):
         card.host = host
-        _batch(mk)
+        mk.copy_start(0)
+        mk.copy_end()
+
+    def step():
+        mk.wait_start()
+        mk.wait_end()
+        mk.step_end()
+
+    copy(0)
+    copy(1 * ms)
+    step()
+    copy(10 * ms)
+    step()
+    step()
+    assert [card.on[e] for e in range(1, 16)] == \
+        3 * [COPY, COPY, COMPUTE, COMPUTE, COMPUTE]
     assert mk.n == 0                    # nothing ran yet: nothing resolved
-    card.done_until = 19 * ms           # the card finished batches 0 and 1
-    card.host = 21 * ms
+    card.done_until = 16 * ms           # the card finished batches 0 and 1
+    card.host = 17 * ms
     mk.resolve()
     assert mk.n == 2 and len(mk.flight) == 1
-    card.host = 31 * ms                 # Z runs at 31 ms, seen at once
+    card.host = 30 * ms                 # Z runs at 30 ms, seen at once
     mk.anchor()
+    assert card.on[16] == COMPUTE
     out = mk.out
     assert (out["batches"], out["skipped"]) == (3, 0)
-    # M0 ran at 5, 12, 22 ms against host stamps 0, 10, 20 ms
-    assert out["launch_queue_ms"] == pytest.approx((5 + 2 + 2) / 3)
-    assert out["h2d_device_ms"] == pytest.approx((2 + 2 + 1) / 3)
+    # M0 ran at 1, 3, 12 ms against host stamps 0, 1, 10 ms
+    assert out["launch_queue_ms"] == pytest.approx((1 + 2 + 2) / 3)
+    assert out["h2d_device_ms"] == pytest.approx((2 + 2 + 10) / 3)
+    assert out["h2d_exposed_ms"] == pytest.approx((1 + 0 + 2) / 3)
     assert out["step_device_ms"] == pytest.approx((4 + 5 + 7) / 3)
     assert out["anchor_us"] == 0
     mk.close()
-    assert card.freed == card.made == 10
+    assert card.freed == card.made == 16
 
 
 def test_a_full_marker_pool_skips_and_counts(monkeypatch):
@@ -271,13 +319,13 @@ def test_a_full_marker_pool_skips_and_counts(monkeypatch):
         _batch(mk)
     assert len(mk.flight) == 2 and mk.skipped == 3
     card.done_until = 10**18            # the card catches up
-    _batch(mk)                          # resolves both, reuses a triple
-    assert mk.n == 2 and len(mk.free) == 0 and card.made == 6
+    _batch(mk)                          # resolves both, reuses a set
+    assert mk.n == 2 and len(mk.free) == 0 and card.made == 10
     card.host = 39 * ms
     mk.anchor()
     assert (mk.out["batches"], mk.out["skipped"]) == (3, 3)
     mk.close()
-    assert card.freed == card.made == 7
+    assert card.freed == card.made == 11
 
 
 def _summary(profiled, batches, value):
@@ -300,12 +348,18 @@ def test_readers_take_the_measured_window(monkeypatch, traced_batches):
               _summary(True, traced_batches, 100.0)]
     monkeypatch.setattr(spans, "recent", lambda: list(recent))
     run = {"window": {"batches": 500}}
-    assert [readers[k].read(run) for k in MARKERS] == [10.0, 11.0, 12.0]
+    assert [readers[k].read(run) for k in MARKERS] == [10.0, 11.0, 12.0,
+                                                       13.0]
+    # markers without the exposed copy (a program whose copy runs on the
+    # compute stream): that one reader gives nothing
+    del recent[1]["markers"]["h2d_exposed_ms"]
+    assert [readers[k].read(run) for k in MARKERS] == [10.0, 11.0, 12.0,
+                                                       None]
     # without markers (the CPU), or without the window's stream: nothing
     recent[1] = _summary(False, 500, None)
-    assert [readers[k].read(run) for k in MARKERS] == [None] * 3
+    assert [readers[k].read(run) for k in MARKERS] == [None] * len(MARKERS)
     recent[1] = _summary(False, 499, 10.0)
-    assert [readers[k].read(run) for k in MARKERS] == [None] * 3
+    assert [readers[k].read(run) for k in MARKERS] == [None] * len(MARKERS)
 
 
 def test_the_cpu_run_reports_no_marker_metric():
@@ -315,11 +369,16 @@ def test_the_cpu_run_reports_no_marker_metric():
     sim = simulate_pairs(ref, B, ReadSimConfig(), seed=2)
     sr = _mapper(ref).map_stream(iter(_batches(sim, 1)))
     run = {"window": {"batches": sr.n_batches}}
-    assert [r.read(run) for r in readers] == [None] * 3
+    assert [r.read(run) for r in readers] == [None] * len(MARKERS)
 
 
 @pytest.mark.cuda
-def test_markers_on_the_card(world):
+def test_markers_on_the_card(world, monkeypatch):
+    """The markers of small pageable and pinned streams; then a stream
+    whose step outlasts its copy (262,144 pairs of 2x250 bp a batch, the
+    card behind the host, every batch marked): the copies are hidden
+    behind the step before them, so the compute stream stalls on them far
+    less than they take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
                     "False)")
@@ -333,7 +392,28 @@ def test_markers_on_the_card(world):
         m = tr["markers"]
         assert m["skipped"] == 0 and 1 <= m["batches"] <= 4
         assert m["launch_queue_ms"] >= 0 and m["h2d_device_ms"] > 0
-        assert m["step_device_ms"] > 0
+        assert m["step_device_ms"] > 0 and m["h2d_exposed_ms"] >= 0
         assert tr["h2d_bytes"] == 2 * B * R * 4
         assert tr["staged_bytes"] == (tr["h2d_bytes"] if staged else 0)
         assert sum(tr["launches"].values()) > 0
+
+    big, r250 = 262_144, 250
+    ref = random_reference(2_000_000, np.random.default_rng(31))
+    sim = simulate_pairs(ref, 16_384, ReadSimConfig(
+        read_len=r250, insert_mean=550, insert_std=50), seed=32)
+    rng = np.random.default_rng(33)
+    pool = []
+    for _ in range(3):
+        rows = rng.integers(0, 16_384, big)
+        pool.append(tuple(
+            torch.from_numpy(r[rows]).pin_memory().numpy()
+            for r in (sim.reads1, sim.reads2)))
+    mapper = Mapper.build(ref, SeedMapConfig(table_bits=20),
+                          PipelineConfig(read_len=r250),
+                          ExecutionConfig(device="cuda", stream_batch=big))
+    mapper.map_stream(iter(pool))                 # warm-up
+    monkeypatch.setattr(spans, "MARKER_EVERY", 1)
+    m = mapper.map_stream(iter(4 * pool)).trace["markers"]
+    assert (m["batches"], m["skipped"]) == (12, 0)
+    assert m["step_device_ms"] > m["h2d_device_ms"] > 0
+    assert 0 <= m["h2d_exposed_ms"] < 0.5 * m["h2d_device_ms"]
