@@ -2,8 +2,9 @@
 // unit of the CUDA kernels, as repro's light_align/kernel.py ::
 // align_block is shared by candidate_align_pallas and light_align_pallas.
 // Mirrors core/light_align.light_align.  Two designs of the same function:
-// `light_align_one` (one thread a read; candidate_align.cu) and
-// `light_align_lanes` (L lanes a read; light_align.cu).
+// `light_align_lanes` (L lanes a read; light_align.cu, and candidate_align.cu
+// up to 1,024 bases) and `light_align_one` (one thread a read;
+// candidate_align.cu past that).
 //
 // Window base E + s + i faces read base i under shift s in [-E, E].  The
 // mismatch-only hypothesis and, per gap length k in [1, E], the best

@@ -35,7 +35,9 @@ call (`Mapper._stream`, `engine.stream.run_stream`).  It records, always:
   (``h2d_bytes``), the bytes ``pin_memory()`` had to copy on the host
   first because a read array was pageable (``staged_bytes``), and the
   package's kernel launches over the stream (the delta of each
-  `kernels._cuda.Kernel.launches`).
+  `kernels._cuda.Kernel.launches`), and how many of candidate_align's
+  ran its lane groups (``light_lanes``, the delta of its
+  ``paths["lanes"]``; the rest aligned one thread an item).
 
 The trace keeps no per-batch record and no reference to a batch.  Its
 summary (`StreamTrace.summary`, a JSON-able dict) lands on
@@ -284,6 +286,12 @@ class _Markers:
                 self.events.destroy(e)
 
 
+def _lane_launches() -> int:
+    """candidate_align's launches through its lane groups so far."""
+    k = _cuda.KERNELS.get("candidate_align")
+    return 0 if k is None else k.paths.get("lanes", 0)
+
+
 class StreamTrace:
     """The spans, markers and counters of one stream on ``device``.
 
@@ -295,7 +303,7 @@ class StreamTrace:
 
     __slots__ = ("device", "spans", "batch", "profiled", "batches", "items",
                  "pseudo_pairs", "h2d_bytes", "staged_bytes", "markers",
-                 "summary", "_launches", "_token")
+                 "summary", "_launches", "_lanes", "_token")
 
     def __init__(self, device: torch.device):
         if device.type == "cuda" and device.index is None:
@@ -311,6 +319,7 @@ class StreamTrace:
 
     def __enter__(self):
         self._launches = _cuda.launch_counts()
+        self._lanes = _lane_launches()
         self._token = _ACTIVE.set(self)
         self.spans["stream"].__enter__()
         if self.device.type == "cuda":
@@ -384,6 +393,7 @@ class StreamTrace:
             "pseudo_pairs": self.pseudo_pairs,
             "h2d_bytes": self.h2d_bytes, "staged_bytes": self.staged_bytes,
             "launches": launches,
+            "light_lanes": _lane_launches() - self._lanes,
             "spans": self._span_summary(),
             "markers": None if self.markers is None else self.markers.out,
         }

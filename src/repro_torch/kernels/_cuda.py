@@ -11,9 +11,10 @@ raises with nvcc's output; nothing falls back to a plain version.
 
 Every kernel is a `Kernel` in `KERNELS`: calling it launches on the
 caller's stream, raises on a non-zero ``cudaGetLastError()`` and adds one
-to its plain-integer ``launches`` count.  Each `Kernel` carries its cost
-function: the HBM bytes and operations of a launch as a function of its
-shapes (`Work`), the formula behind the bound of every kernel in
+to its plain-integer ``launches`` count (and, for a kernel with more than
+one path, to that path's count in ``paths``).  Each `Kernel` carries its
+cost function: the HBM bytes and operations of a launch as a function of
+its shapes (`Work`), the formula behind the bound of every kernel in
 ``chip_smoke.py`` and the kernel's share of a dry run's counts.
 
 A launch is the one place that turns tensors into pointers.  Under
@@ -195,8 +196,9 @@ def pointers(args) -> list | None:
 
 
 class Kernel:
-    """One C entry point of the library, its launch count and its cost
-    function (``cost(*work) -> Work``)."""
+    """One C entry point of the library, its launch count, its launches by
+    path (``paths``: the path's name -> launches, for a kernel whose
+    wrapper names one) and its cost function (``cost(*work) -> Work``)."""
 
     def __init__(self, name: str, symbol: str, argtypes: tuple,
                  cost: Callable[..., Work]):
@@ -205,12 +207,14 @@ class Kernel:
         self.argtypes = argtypes
         self.cost = cost
         self.launches = 0
+        self.paths: dict[str, int] = {}
 
-    def __call__(self, *args, stream: torch.Tensor, work: tuple) -> None:
+    def __call__(self, *args, stream: torch.Tensor, work: tuple,
+                 path: str | None = None) -> None:
         """Launch on ``stream``'s device's current stream.  A tensor
         argument passes as its data pointer, None as a null pointer, any
         other value as it is (`pointers`); ``work`` are the cost
-        function's arguments."""
+        function's arguments, ``path`` the path the launch takes."""
         ptrs = pointers(args)
         if ptrs is None or type(stream) is FakeTensor:
             return self._fake_launch(work)
@@ -224,6 +228,8 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"{msg} (error {err})")
         self.launches += 1
+        if path is not None:
+            self.paths[path] = self.paths.get(path, 0) + 1
 
     def _fake_launch(self, work: tuple) -> None:
         dry = _DRY.get()
@@ -248,6 +254,7 @@ def register(name: str, symbol: str, argtypes: tuple,
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.paths.clear()
 
 
 def launch_counts() -> dict[str, int]:

@@ -80,9 +80,9 @@ def clamp_window_starts(pos: torch.Tensor, valid: torch.Tensor, ref_len: int,
 
 
 def staged_stride(n: int) -> int:
-    """Bytes of one row staged in shared memory by candidate_align (one
-    thread a row): whole 4-byte words, an odd number of them (a warp's 32
-    rows then fall in 32 banks)."""
+    """Bytes of one row staged in shared memory by candidate_align (a
+    thread's or a lane group's row): whole 4-byte words, an odd number of
+    them (a warp's rows then start in different banks)."""
     return 4 * (((n + 3) // 4) | 1)
 
 

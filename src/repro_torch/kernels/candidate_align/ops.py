@@ -13,6 +13,8 @@ result does not depend on it.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.encoding import packed_gather_coords
@@ -68,42 +70,86 @@ def candidate_align_cost(B: int, R: int, C: int, E: int, packed: bool,
 
 CANDIDATE_ALIGN = _cuda.register(
     "candidate_align", "candidate_align_launch",
-    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 18 + (PTR,) * 5,
+    (PTR, INT, PTR, PTR, PTR, PTR) + (INT,) * 19 + (PTR,) * 5,
     candidate_align_cost)
 
 # the reduction key (score1 + score2) * C - j stays inside int32
 MAX_CANDIDATES = 512
 MAX_READ = 1 << 14        # the kernel packs an edit's length and position
-THREADS = 128             # threads per block
-# The pair lane has ~2.03 live alignments per pair: 48 pairs fill ~3/4 of
-# the threads in one round, leaving room for pairs with more candidates.
+MAX_LANE_READ = 1024      # positions a warp of lanes holds (light_align.cuh)
+# Threads per block (the kernel's MAX_THREADS).  With 8 lanes an item, as
+# at R 150 and 250, a block runs 16 items at once; at most 64 registers a
+# thread (the kernel's MIN_BLOCKS), so an SM holds 8 blocks, 32 warps.
+THREADS = 128
+# The pair lane has ~2.03 live alignments per pair: 48 pairs give ~97
+# items a block, six rounds of its 16 lane groups at R 150 or 250.
 PAIRS_PER_BLOCK = 48
 MAX_SHARED = 100 * 1024   # bytes per block: two blocks fit an SM
+TABLE_BYTES = 256 * 8     # the lanes' nibble table
+
+
+def read_lanes(R: int, E: int) -> int:
+    """Lanes an alignment takes: the power of two covering R in 32-position
+    lanes where `light_align_lanes` holds the read (E + 2 <= R <=
+    `MAX_LANE_READ`), else 0 (one thread an item)."""
+    if not E + 2 <= R <= MAX_LANE_READ:
+        return 0
+    lanes = 1
+    while 32 * lanes < R:
+        lanes *= 2
+    return lanes
+
+
+class LaunchShape(NamedTuple):
+    threads: int          # a block's
+    pairs: int            # pairs a block
+    lanes: int            # lanes an item, 0 for one thread
+    sr: int               # staged read row stride, bytes
+    sw: int               # staged window row stride, bytes
+    max_pairs: int        # the most pairs a block fits
+    shared: int           # bytes of shared memory a block takes
 
 
 def launch_shape(R: int, W: int, C: int, block: int | None = None
-                 ) -> tuple[int, int, int, int]:
-    """``(threads, pairs per block, sr, sw)`` of a launch: each thread's
-    read and window rows (strides sr, sw) and each pair's 8 C + 1 ints of
-    results and lists fit `MAX_SHARED`.  ``block`` pairs a block, or None
-    for `PAIRS_PER_BLOCK` (fewer where they do not fit); an explicit value
-    that does not fit raises, nothing is clamped."""
-    sr, sw = staged_stride(R), staged_stride(W)
+                 ) -> LaunchShape:
+    """A launch's threads, pairs a block, lanes an item and staged row
+    strides (`LaunchShape`).  With lanes (`read_lanes`), a group of L lanes
+    aligns an item, `THREADS` / L items in flight a block, each row
+    holding the item's bytes plus the slack `light_align_lanes` reads past
+    them (4 NW L + E + 8 and 4 NW L + 2E + 8 bytes); else each of up to
+    `THREADS` threads (whole warps, or fewer than one where a warp's rows
+    do not fit) aligns one on rows of R and W bytes.  The rows, the table
+    and each pair's 8 C + 1 ints fit `MAX_SHARED`.  ``block`` pairs a
+    block, or None for `PAIRS_PER_BLOCK` (fewer where they do not fit); an
+    explicit value that does not fit raises, nothing is clamped."""
+    E = (W - R) // 2
+    lanes = read_lanes(R, E)
     pair_bytes = 4 * (8 * C + 1)
-    threads = min(THREADS,
-                  (MAX_SHARED - 4 - pair_bytes) // (sr + sw) // 32 * 32)
+    if lanes:
+        span = 4 * -(-R // (4 * lanes)) * lanes        # 4 NW L
+        sr, sw = staged_stride(span + E + 8), staged_stride(span + 2 * E + 8)
+        fixed = 4 + TABLE_BYTES
+        warps = (MAX_SHARED - fixed - pair_bytes) // (32 // lanes * (sr + sw))
+        threads = min(THREADS, 32 * warps)
+        rows = threads // lanes
+    else:
+        sr, sw = staged_stride(R), staged_stride(W)
+        fixed = 4
+        n = min(THREADS, (MAX_SHARED - fixed - pair_bytes) // (sr + sw))
+        threads = rows = n // 32 * 32 or n          # whole warps, or fewer
     fit = 0 if threads <= 0 else (
-        MAX_SHARED - 4 - threads * (sr + sw)) // pair_bytes
+        MAX_SHARED - fixed - rows * (sr + sw)) // pair_bytes
     if fit <= 0:
-        raise ValueError(f"candidate_align: a warp's rows of {R} + {W} "
+        raise ValueError(f"candidate_align: an item's rows of {R} + {W} "
                          f"bases and a pair of {C} candidates exceed "
                          f"{MAX_SHARED}-byte shared memory")
     if block is None:
-        return threads, min(PAIRS_PER_BLOCK, fit), sr, sw
-    if not 1 <= block <= fit:
+        block = min(PAIRS_PER_BLOCK, fit)
+    elif not 1 <= block <= fit:
         raise ValueError(f"candidate_align takes 1..{fit} pairs a block at "
                          f"R {R}, W {W}, C {C}, got {block}")
-    return threads, block, sr, sw
+    return LaunchShape(threads, block, lanes, sr, sw, fit,
+                       fixed + rows * (sr + sw) + block * pair_bytes)
 
 
 def candidate_pair_align(
@@ -156,7 +202,7 @@ def candidate_pair_align(
     _cuda.check(pos2, "pos2", torch.int32, (B, C))
     if count is not None:
         _cuda.check(count, "count", torch.int32, (1,))
-    threads, ppb, sr, sw = launch_shape(R, W, C, block)
+    shape = launch_shape(R, W, C, block)
 
     if kref is None:
         kref = kernel_reference(ref, W, packed_ref)
@@ -173,9 +219,10 @@ def candidate_pair_align(
         kref.data, int(packed_ref), reads1, reads2, pos1, pos2,
         B, R, C, E, prescreen_top, int(mode == "paper"), scoring.match,
         scoring.mismatch, scoring.gap_open, scoring.gap_extend, threshold,
-        threads, ppb, sr, sw, ref.shape[0], win_hi, kref.pad,
-        out, cigar1, cigar2, count, stream=ref,
-        work=(B, R, C, E, packed_ref, prescreen_top))
+        shape.threads, shape.lanes, shape.pairs, shape.sr, shape.sw,
+        ref.shape[0], win_hi, kref.pad, out, cigar1, cigar2, count,
+        stream=ref, work=(B, R, C, E, packed_ref, prescreen_top),
+        path="lanes" if shape.lanes else "thread")
     slot, rank, sc1, sc2, ok1, ok2, bp1, bp2 = out.unbind(0)
     return PairAlignResult(
         best=rank, slot=slot, pos1=bp1, pos2=bp2, score1=sc1, score2=sc2,

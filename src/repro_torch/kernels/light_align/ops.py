@@ -2,8 +2,8 @@
 
 On CUDA tensors `light_align` launches the `light_align` kernel, which
 runs the lane-split unit of csrc/light_align.cuh (L lanes a row, the
-function `candidate_align`'s one-thread unit computes) on gathered
-windows; on CPU tensors (or with ``backend="torch"``) it runs the
+unit `candidate_align` runs on its staged items) on gathered windows; on
+CPU tensors (or with ``backend="torch"``) it runs the
 plain version.  Reads and windows are compared as values, as repro
 compares them in int32: the kernel takes uint8 bases, so an int32 input is
 narrowed only when every value lies in [0, 255], and refused otherwise.

@@ -37,7 +37,11 @@ from repro_torch.core.simulate import (
 from repro_torch.engine import ExecutionConfig, Mapper
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.banded_sw.ops import banded_sw
-from repro_torch.kernels.candidate_align.ops import candidate_pair_align
+from repro_torch.kernels.candidate_align.ops import (
+    MAX_LANE_READ,
+    candidate_pair_align,
+    launch_shape,
+)
 from repro_torch.kernels.candidate_align.ref import gather_windows
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.light_align.ops import light_align
@@ -153,16 +157,16 @@ def _cand_world(dev, b=40, c=8, L=6000, R=150, seed=0):
     return t(ref), t(reads1), t(reads2), t(pos1), t(pos2)
 
 
-def _cand_kind_world(dev, kind, seed=0):
+def _cand_kind_world(dev, kind, seed=0, R=150):
     """_cand_world's reference, reads and planted hits under one validity
     pattern: every slot valid ("dense"), one valid slot per row, only
     half-valid slots (one mate valid) beside rows with one fully valid
     slot, every slot invalid, C = 1, a batch of 4,096 pairs whose blocks
-    each hold several rounds of items per thread, and starts at the
-    window clamps' edges (before the origin, past the end, near +-2^31,
-    where pos - E wraps as int32)."""
+    each hold several rounds of items per lane group (or thread), and
+    starts at the window clamps' edges (before the origin, past the end,
+    near +-2^31, where pos - E wraps as int32)."""
     b, c = {"c1": (40, 1), "large": (4096, 8)}.get(kind, (160, 8))
-    ref, r1, r2, p1, p2 = _cand_world(dev, b=b, c=c, seed=seed)
+    ref, r1, r2, p1, p2 = _cand_world(dev, b=b, c=c, R=R, seed=seed)
     rng = np.random.default_rng(seed + 1)
     L = ref.shape[0]
     full = torch.as_tensor(rng.integers(-30, L + 30, (2, b, c)),
@@ -187,21 +191,37 @@ def _cand_kind_world(dev, kind, seed=0):
     elif kind == "all_invalid":
         p1, p2 = inv, inv.clone()
     elif kind == "edges":                            # the window clamps
-        edge = torch.tensor([-2**31, -2**31 + 3, -(150 + 16 + 9), -9, -3, 0,
-                             L - 158, L - 1, L + 7, 2**30, 2**31 - 2],
+        edge = torch.tensor([-2**31, -2**31 + 3, -(R + 16 + 9), -9, -3, 0,
+                             L - R - 8, L - 1, L + 7, 2**30, 2**31 - 2],
                             dtype=torch.int32, device=dev)
         p1 = edge[torch.arange(b * c, device=dev) % len(edge)].reshape(b, c)
         p2 = p1.flip(1)
     return ref, r1, r2, p1.contiguous(), p2.contiguous()
 
 
+def _want_count(p1, p2, got):
+    """The alignments the kernel runs without a prescreen: every valid
+    mate, both mates of a row without one, and the winner's invalid mates
+    in a row with one."""
+    v1, v2 = p1 != INVALID_LOC, p2 != INVALID_LOC
+    has = (v1 | v2).any(1)
+    late = (got.pos1 == INVALID_LOC).int() + (got.pos2 == INVALID_LOC).int()
+    return int(v1.sum() + v2.sum() + 2 * (~has).sum() + late[has].sum())
+
+
+def _path_launches():
+    return dict(_cuda.KERNELS["candidate_align"].paths)
+
+
 @pytest.mark.parametrize("kind", ["dense", "one_valid", "half_valid",
                                   "all_invalid", "c1", "large", "edges"])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("prescreen", [0, 4])
+@pytest.mark.parametrize("R", [150, 250, 1100])
 def test_candidate_align_validity_patterns_match_plain(dev, kind, packed,
-                                                       prescreen):
-    ref, r1, r2, p1, p2 = _cand_kind_world(dev, kind, seed=prescreen + 3)
+                                                       prescreen, R):
+    ref, r1, r2, p1, p2 = _cand_kind_world(dev, kind, seed=prescreen + 3,
+                                           R=R)
     ref_in = pack_2bit(ref) if packed else ref
     kw = dict(prescreen_top=prescreen, packed_ref=packed)
     count = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -209,29 +229,35 @@ def test_candidate_align_validity_patterns_match_plain(dev, kind, packed,
                                count=count, **kw)
     want = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="torch",
                                 **kw)
-    _same(got, want, f"{kind} packed={packed} P={prescreen}")
+    _same(got, want, f"{kind} packed={packed} P={prescreen} R={R}")
     if prescreen == 0 or p1.shape[1] <= prescreen:
-        # every valid mate, both mates of a row without one, and the
-        # winner's invalid mates in a row with one
-        v1, v2 = p1 != INVALID_LOC, p2 != INVALID_LOC
-        has = (v1 | v2).any(1)
-        late = (got.pos1 == INVALID_LOC).int() + (got.pos2 == INVALID_LOC).int()
-        want_n = int(v1.sum() + v2.sum() + 2 * (~has).sum() + late[has].sum())
-        assert int(count) == want_n, kind
+        assert int(count) == _want_count(p1, p2, got), kind
 
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("mode", ["minsplit", "paper"])
 @pytest.mark.parametrize("prescreen", [0, 1, 4, 8])
-def test_candidate_align_matches_plain(dev, packed, mode, prescreen):
-    ref, r1, r2, p1, p2 = _cand_world(dev, seed=prescreen)
+@pytest.mark.parametrize("E", [8, 16])
+@pytest.mark.parametrize("R", [100, 150, 250, 251, 1024, 1100])
+def test_candidate_align_matches_plain(dev, packed, mode, prescreen, E, R):
+    """Lane groups of 4 (R 100), 8 (150, 250, an odd 251) and 32 lanes
+    (1,024, the lanes' limit), one thread an item past it (1,100): bit for
+    bit, the alignments counted, the launch on the path R picks."""
+    ref, r1, r2, p1, p2 = _cand_world(dev, R=R, seed=prescreen + R + E)
     ref_in = pack_2bit(ref) if packed else ref
     kw = dict(mode=mode, prescreen_top=prescreen, packed_ref=packed)
-    got = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="cuda",
-                               **kw)
-    want = candidate_pair_align(ref_in, r1, r2, p1, p2, 8, backend="torch",
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = _path_launches()
+    got = candidate_pair_align(ref_in, r1, r2, p1, p2, E, backend="cuda",
+                               count=count, **kw)
+    path = "lanes" if R <= MAX_LANE_READ else "thread"
+    assert _path_launches() == {**before, path: before.get(path, 0) + 1}
+    want = candidate_pair_align(ref_in, r1, r2, p1, p2, E, backend="torch",
                                 **kw)
-    _same(got, want, f"packed={packed} mode={mode} P={prescreen}")
+    _same(got, want, f"packed={packed} mode={mode} P={prescreen} E={E} "
+                     f"R={R}")
+    if prescreen == 0 or p1.shape[1] <= prescreen:
+        assert int(count) == _want_count(p1, p2, got)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -949,7 +975,8 @@ def test_pair_frontend_every_geometry_matches_plain(dev, block):
           want, f"merge_filter block={block}")
 
 
-@pytest.mark.parametrize("block", _blocks((16, 32, 48, 96), 232))
+@pytest.mark.parametrize("block", _blocks((16, 32, 48, 96),
+                                          launch_shape(150, 166, 8).max_pairs))
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("prescreen", [0, 4])
 def test_candidate_align_every_geometry_matches_plain(dev, block, packed,
@@ -1010,7 +1037,8 @@ def test_geometry_past_the_limits_raises_before_launch(dev):
         location_vote(d, 64, block=2, backend="cuda")
     ref, r1, r2, p1, p2 = _cand_world(dev)
     with pytest.raises(ValueError, match="pairs a block"):
-        candidate_pair_align(ref, r1, r2, p1, p2, 8, block=233,
+        candidate_pair_align(ref, r1, r2, p1, p2, 8,
+                             block=launch_shape(150, 166, 8).max_pairs + 1,
                              backend="cuda")
 
 

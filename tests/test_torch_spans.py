@@ -70,6 +70,7 @@ def test_every_span_once_a_batch_and_exact_counters(world):
     assert tr["h2d_bytes"] == 2 * B * R * n
     assert tr["staged_bytes"] == 0          # nothing is pinned on the CPU
     assert tr["launches"] == {}             # the plain path launches none
+    assert tr["light_lanes"] == 0
     got = tr["spans"]
     assert set(got) == set(spans.SPANS)
     for name, s in got.items():
@@ -381,10 +382,11 @@ def test_the_cpu_run_reports_no_marker_metric():
 @pytest.mark.cuda
 def test_markers_on_the_card(world, monkeypatch):
     """The markers of small pageable and pinned streams; then a stream
-    whose step outlasts its copy (262,144 pairs of 2x250 bp a batch, the
-    card behind the host, every batch marked): the copies are hidden
-    behind the step before them, so the compute stream stalls on them far
-    less than they take."""
+    whose step outlasts its copy (262,144 pairs of 2x250 bp a batch at 1 %
+    substitutions, so that about a sixth of the mates take the residual
+    DP; the card behind the host, every batch marked): the copies are
+    hidden behind the step before them, so the compute stream stalls on
+    them far less than they take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
                     "False)")
@@ -402,11 +404,14 @@ def test_markers_on_the_card(world, monkeypatch):
         assert tr["h2d_bytes"] == 2 * B * R * 4
         assert tr["staged_bytes"] == (tr["h2d_bytes"] if staged else 0)
         assert sum(tr["launches"].values()) > 0
+        # R 150: every candidate_align launch aligns on lane groups
+        assert tr["light_lanes"] == tr["launches"]["candidate_align"] > 0
 
     big, r250 = 262_144, 250
     ref = random_reference(2_000_000, np.random.default_rng(31))
     sim = simulate_pairs(ref, 16_384, ReadSimConfig(
-        read_len=r250, insert_mean=550, insert_std=50), seed=32)
+        read_len=r250, insert_mean=550, insert_std=50, sub_rate=0.01),
+        seed=32)
     rng = np.random.default_rng(33)
     pool = []
     for _ in range(3):

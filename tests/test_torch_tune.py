@@ -34,7 +34,11 @@ from repro_torch.core.simulate import (
 )
 from repro_torch.engine import ExecutionConfig, Mapper
 from repro_torch.kernels.candidate_align.ops import (
+    MAX_LANE_READ,
+    MAX_READ,
+    MAX_SHARED,
     PAIRS_PER_BLOCK,
+    THREADS,
     candidate_pair_align,
     launch_shape,
 )
@@ -430,6 +434,41 @@ def test_shared_memory_limits_the_geometry():
     assert residual_warps(960, 992, None, 8) == (8, 32)
     with pytest.raises(ValueError, match="1..8 warps"):
         residual_warps(960, 992, None, 9)
+
+
+@pytest.mark.parametrize("C", [1, 8, 64])
+@pytest.mark.parametrize("E", [8, 16])
+def test_candidate_align_shape_follows_the_read(E, C):
+    """Every read length the wrapper takes (E + 2 <= R < 2^14: a coarse
+    grid and the lanes' edges): a block's shared memory fits; up to 1,024
+    bases an item takes the power of two of 32-position lanes covering R,
+    on rows holding the slack the lanes read past the read and window, and
+    past that one thread (whole warps, or fewer); the default block takes
+    48 pairs where they fit, the largest block fits and one more raises."""
+    edges = {E + 2, 32, 33, 64, 65, 100, 128, 129, 150, 250, 251, 256, 257,
+             512, 513, 1023, 1024, 1025, 1100, MAX_READ - 1}
+    for R in sorted(edges | set(range(E + 2, MAX_READ, 97))):
+        W = R + 2 * E
+        shape = launch_shape(R, W, C)
+        assert shape.shared <= MAX_SHARED, R
+        assert shape.pairs == min(PAIRS_PER_BLOCK, shape.max_pairs), R
+        L = shape.lanes
+        if R <= MAX_LANE_READ:
+            assert L in (1, 2, 4, 8, 16, 32) and R <= 32 * L, R
+            assert L == 1 or 16 * L < R, R
+            assert shape.threads == THREADS, R
+            span = 4 * L * -(-R // (4 * L))              # 4 NW L, NW <= 8
+            assert span <= 32 * L
+            assert shape.sr >= span + E + 8 and shape.sw >= span + 2 * E + 8
+        else:
+            assert L == 0 and shape.sr >= R and shape.sw >= W, R
+            assert 1 <= shape.threads <= THREADS, R
+            assert shape.threads % 32 == 0 or shape.threads < 32, R
+        top = launch_shape(R, W, C, shape.max_pairs)
+        assert top.pairs == shape.max_pairs and top.shared <= MAX_SHARED, R
+        assert top.shared + 4 * (8 * C + 1) > MAX_SHARED, R
+        with pytest.raises(ValueError, match=rf"1\.\.{shape.max_pairs} pairs"):
+            launch_shape(R, W, C, shape.max_pairs + 1)
 
 
 def test_a_tuned_geometry_maps_as_the_default(world):
