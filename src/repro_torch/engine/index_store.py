@@ -15,8 +15,8 @@ words.  Stores move between the two packages either way.  A store saved
 here lacks the JAX configs' per-family kernel backends; the JAX package
 fills them with its defaults on load.  This package drops them, and the
 TPU launch blocks beside them, from a JAX store
-(`convert.config_from_fields`); its own launch geometry (the ``*_block``
-fields, warps or pairs a block of its kernels) round-trips.
+(`core.config_fields.config_from_fields`); its own launch geometry (the
+``*_block`` fields, warps or pairs a block of its kernels) round-trips.
 
 Store layout (a directory)::
 
@@ -46,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.convert import config_from_fields
+from repro_torch.core.config_fields import config_from_fields
 from repro_torch.core.long_read import LongReadConfig
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.seedmap import PaddedSeedMap, SeedMap, SeedMapConfig

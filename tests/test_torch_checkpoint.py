@@ -31,16 +31,6 @@ from repro_torch.tree import tree_map
 WORKER_TIMEOUT = 300  # seconds for the 2-rank subprocess run
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these smoke-size tensors: the test workers
-    share the machine's cores, and a thread pool in each only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _tree(seed=0):
     rng = np.random.default_rng(seed)
     return {
@@ -283,7 +273,7 @@ def test_reshard_on_restore_over_two_gloo_ranks(tmp_path):
     state = _train_state(3)
     Checkpointer(str(tmp_path / "ckpt")).save(2, {"params": state["params"],
                                                   "opt": state["opt"]})
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     store = tmp_path / "store"
@@ -317,7 +307,6 @@ def _worker(ckpt_dir: str, rank: int, world_size: int, store: str) -> None:
     from repro_torch.sharding.partition import (
         PROD_RULES, Sharding, tree_shardings,
     )
-    torch.set_num_threads(1)
     reads = {}
     real_load = np.load
 

@@ -260,6 +260,23 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     assert int(out.stdout) >= 20
 
 
+def test_engine_imports_no_lm_substrate():
+    """The mapper's session loads none of the LM path: importing
+    repro_torch.engine in a fresh interpreter pulls in no model or
+    optimizer module."""
+    import repro_torch
+    pkg = os.path.dirname(list(repro_torch.__path__)[0])
+    code = (
+        "import sys, repro_torch.engine\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[:2] in "
+        "(['repro_torch', 'models'], ['repro_torch', 'optim'])))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ, "PYTHONPATH": pkg})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     """chip_smoke.py imports inside main(); check every import statement."""
     import ast

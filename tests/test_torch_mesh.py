@@ -365,7 +365,7 @@ def test_four_rank_mesh_mappers_match_repro(world, jmesh11, tmp_path):
     np.savez(npz, **arrays)
 
     store = tmp_path / "store"
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     procs = [subprocess.Popen(
@@ -389,7 +389,6 @@ def test_four_rank_mesh_mappers_match_repro(world, jmesh11, tmp_path):
 
 def _worker(npz, rank: int, world_size: int, store: str) -> None:
     """One rank of the 4-rank check (see the test above)."""
-    torch.set_num_threads(1)
     data = np.load(npz)
     meta = json.loads(str(data["meta"]))
     sm = seedmap_from_numpy(data["offsets"], data["locations"],

@@ -154,7 +154,7 @@ def fleet(world, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("fleet")
     npz = tmp / "want.npz"
     np.savez(npz, **arrays)
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     procs = [subprocess.Popen(
@@ -262,7 +262,6 @@ def _worker(npz, rank: int, world_size: int, store: str) -> None:
 
     from repro_torch.launch.mesh import make_mesh
 
-    torch.set_num_threads(1)
     data = np.load(npz)
     ref, sim = _pool()
     sm = build_seedmap(ref, SeedMapConfig(table_bits=TB))

@@ -31,16 +31,6 @@ from repro_torch.optim import compress as tcomp
 from repro_torch.optim.schedules import warmup_cosine
 
 F32_RTOL, F32_ATOL = 1e-6, 1e-7
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these smoke-size tensors: the test workers
-    share the machine's cores, and a thread pool in each only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 BF16_RTOL = 2 ** -7
 
 

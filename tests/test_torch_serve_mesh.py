@@ -245,7 +245,7 @@ def _routes_equal(got: list, want: list, rows: tuple, n_rows: int) -> bool:
 
 def _launch(argv_of, n: int) -> list:
     """Start ``n`` worker processes (``argv_of(rank)``) and return them."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     return [subprocess.Popen(argv_of(r), env=env, stdout=subprocess.PIPE,
@@ -419,7 +419,6 @@ def _audio_embed_case(mesh, whole: dict, out: dict) -> None:
 def ranks_worker(out_dir: str, rank: int, world: int, store: str) -> None:
     """Rank ``rank`` of the 4-rank launch: every mesh in turn."""
     from repro_torch.convert import lm_params_from_jax
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     whole = {n: lm_params_from_jax(_param_arrays(
@@ -560,14 +559,6 @@ def repro_worker(out_dir: str) -> None:
 
 
 # ------------------------------------------------------------------ tests --
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     """The parameters of every config (a seeded torch draw), then repro's

@@ -60,16 +60,6 @@ from repro_torch.sharding import partition as tpart
 from repro_torch.tree import tree_leaves
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these smoke-size tensors: the test workers
-    share the machine's cores, and a thread pool in each only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ------------------------------------------------------ re-mesh and rules --
 def test_plan_remesh_equals_repro():
     grid = itertools.product((1, 2, 3, 8, 16, 17, 64, 256, 512),
@@ -479,7 +469,7 @@ def test_train_refuses_what_it_cannot_run(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.train(_run_cfg(tmp_path, device="cuda"))
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     ckpt_dir = tmp_path / "two_ranks"

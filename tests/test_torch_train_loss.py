@@ -43,16 +43,6 @@ from repro_torch.models.template import init_params
 from repro_torch.models.transformer import model_template
 
 B, S = 2, 256
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these smoke-size tensors: the test workers
-    share the machine's cores, and a thread pool in each only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-7
 

@@ -168,7 +168,7 @@ def _files(d) -> dict:
 
 def _start(argv_of, n: int) -> list:
     """Start ``n`` worker processes (``argv_of(rank)``) and return them."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": os.path.join(os.path.dirname(__file__), os.pardir,
                                       "src")}
     return [subprocess.Popen(argv_of(r), env=env, stdout=subprocess.PIPE,
@@ -668,7 +668,6 @@ def _restore_repro_case(out_dir: str, mesh, start) -> bool:
 
 def ranks_worker(out_dir: str, rank: int, world: int, store: str) -> None:
     """Rank ``rank`` of the 4-rank launch: every mesh in turn."""
-    torch.set_num_threads(1)
     T.Watchdog, T._model_cfg = _Steady, _float32_model_cfg
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
@@ -718,7 +717,6 @@ def resume_worker(out_dir: str, rank: int, world: int, store: str) -> None:
     """Rank ``rank`` of the 2 survivors of the 4: the elastic plan's mesh,
     resuming the (2, 2) run from its committed step."""
     from repro_torch.runtime import build_mesh, plan_remesh
-    torch.set_num_threads(1)
     T.Watchdog, T._model_cfg = _Steady, _float32_model_cfg
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
@@ -843,14 +841,6 @@ def repro_worker(out_dir: str) -> None:
 
 
 # ------------------------------------------------------------------ tests --
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     """repro's steps beside the 4-rank launch, then the 2-rank resume; and
