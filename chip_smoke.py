@@ -3251,9 +3251,11 @@ def main() -> int:
                for s in (1, 2)]
     sw_sessions = [Mapper.build(r, sw_cfg, pipe, sw_exec) for r in sw_refs]
     sw_stores = [out_dir / f"swap_store_{k}" for k in (1, 2)]
-    for m, path in zip(sw_sessions, sw_stores):
+    # not `m`: light_align_edges closes over it, so a session bound to it
+    # would outlive `del sw_sessions`
+    for sess, path in zip(sw_sessions, sw_stores):
         shutil.rmtree(path, ignore_errors=True)
-        m.save(path)
+        sess.save(path)
     sw_sims = [simulate_pairs(sw_refs[1], SWAP_BATCH, ReadSimConfig(),
                               seed=SEED + 40 + k) for k in range(4)]
     door_m = Mapper.load(sw_stores[0], sw_exec)
@@ -3768,6 +3770,7 @@ def main() -> int:
     import gc
     del mapper, smapper, csr, rows, words, kref, bases, bases_kref
     del mf_locs, mf_buckets, synth
+    del table        # phase 3's last seed_gather table, a view of `rows`
     gc.collect()
     torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32:

@@ -15,7 +15,9 @@ totals and one host sync at the end.  ``mapper.save`` / ``Mapper.load``
 round-trip the resolved session through an index store
 (`engine.index_store`), and ``mapper.swap_index`` replaces the index a
 live session serves.  All are eager launches on PyTorch's
-current stream.  On a mesh (`ExecutionConfig.mesh`) every rank is handed
+current stream, but for a full batch of ``map_stream`` on one card
+through the kernels, which replays a CUDA graph of the same step
+(`engine.graph`).  On a mesh (`ExecutionConfig.mesh`) every rank is handed
 the same global batch, maps its rows of the data axis and all_gathers the
 result, so each call returns the global result on every rank.
 """
@@ -55,6 +57,7 @@ from repro_torch.engine.config import (
     resolved_long_read,
     resolved_pipeline,
 )
+from repro_torch.engine.graph import StepGraphs
 from repro_torch.engine.index_store import (
     IndexStoreError,
     StorePayload,
@@ -67,6 +70,7 @@ from repro_torch.engine.stats import (
     add_stage_counts,
     fetch_stage_totals,
     init_stage_totals,
+    stage_count_vector,
 )
 from repro_torch.engine.stream import (
     StreamResult,
@@ -131,6 +135,10 @@ class Mapper:
         else:
             self.lr_cfg = resolved_long_read(pipe_cfg, exec_cfg,
                                              self._tune_entries)
+        # the pair stream's ring slots and step graphs: one card, kernels
+        self._graphs = (StepGraphs(device) if device.type == "cuda"
+                        and backend == "cuda" and self._serve is None
+                        and self._split is None else None)
 
     def _kernel_ref(self, ref: torch.Tensor):
         """The reference padded once for both window kernels (CUDA only)."""
@@ -303,6 +311,8 @@ class Mapper:
                 self.index.config)
             ref = payload.ref.to(self.device)
             self.index, self.ref, self.kref = index, ref, self._kernel_ref(ref)
+            if self._graphs is not None:
+                self._graphs.forget()
             return "reused"
         warnings.warn(
             "swap_index: store differs in shape or config from the live "
@@ -331,6 +341,12 @@ class Mapper:
                                  self.pipe_cfg, self.backend, self.kref,
                                  self._split)
         return _mask_tail(res, n)
+
+    def _counted_step(self, reads1: torch.Tensor, reads2: torch.Tensor):
+        """`_step` of a batch whose every row is real, and its stage
+        counts as one vector: what a step graph records."""
+        res = self._step(reads1, reads2, reads1.shape[0])
+        return res, stage_count_vector(stage_stat_counts(res), STAT_KEYS)
 
     def _long_step(self, reads: torch.Tensor, n) -> LongReadResult:
         """`_step` for long reads: each read maps on its own, so on a mesh
@@ -375,7 +391,9 @@ class Mapper:
         """The lane-generic stream body behind `map_stream` and
         `map_long_stream`: warmup, tail padding, per-batch stage totals on
         the device and the one fetch at the end, under the stream's
-        `spans.StreamTrace`."""
+        `spans.StreamTrace`.  On the pair lane of a session with
+        `StepGraphs`, a full batch in a ring slot replays the slot's
+        graph, captured after the slot's first full batch ran eagerly."""
         step_name, counts_fn, keys, n_arrays = self._LANES[lane]
         step = getattr(self, step_name)
         stream_batch = self.exec_cfg.stream_batch
@@ -393,14 +411,33 @@ class Mapper:
         def dispatch(*args):
             nonlocal reduced
             *reads, n, aux = args
+            # looked up a batch: a swap_index that rebuilds the session
+            # mid-stream leaves the ring's slots to graphs of the old index
+            graphs = self._graphs if lane == "pairs" else None
+            s = graph = None
+            if graphs is not None and isinstance(n, int) and \
+                    n == reads[0].shape[0]:
+                s = graphs.find(reads)
+                graph = None if s is None else graphs.graphs[s]
             with trace.spans["step"]:
-                res = step(*reads, n)
+                if graph is None:
+                    res = step(*reads, n)
+                else:
+                    res, counts = graph.replay()
             trace.step_end()
             if lane == "long":
                 segs = self.lr_cfg.n_segments(reads[0].shape[-1])
                 trace.pseudo_pairs += n * (segs - 1)
             with trace.spans["stream.counts"]:
-                add_stage_counts(totals, counts_fn(res), keys)
+                if graph is None:
+                    add_stage_counts(totals, counts_fn(res), keys)
+                else:
+                    totals.add_(counts)
+            if graph is not None:
+                trace.graph_replays += 1
+            elif s is not None:
+                graphs.capture(s, lambda: self._counted_step(*reads))
+                trace.graph_captures += 1
             if reduce_fn is not None:
                 reduced = reduce_fn(reduced, res,
                                     tree_map(lambda a: to_device(a, dev),
@@ -415,7 +452,8 @@ class Mapper:
         with trace:
             n_items, n_batches, seconds, fetched = run_stream(
                 dispatch, batches, trace, dev, stream_batch=stream_batch,
-                on_result=on_result, drain=drain, n_arrays=n_arrays)
+                on_result=on_result, drain=drain, n_arrays=n_arrays,
+                slots=self._graphs if lane == "pairs" else None)
         return StreamResult(n_pairs=n_items, n_batches=n_batches,
                             seconds=seconds, totals=fetched,
                             reduced=reduced, reads_per_item=n_arrays,

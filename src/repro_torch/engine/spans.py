@@ -37,7 +37,12 @@ call (`Mapper._stream`, `engine.stream.run_stream`).  It records, always:
   package's kernel launches over the stream (the delta of each
   `kernels._cuda.Kernel.launches`), and how many of candidate_align's
   ran its lane groups (``light_lanes``, the delta of its
-  ``paths["lanes"]``; the rest aligned one thread an item).
+  ``paths["lanes"]``; the rest aligned one thread an item).  A step
+  replayed from a CUDA graph (`engine.graph`) counts its kernels' launches
+  as the eager step does, and the stream counts such steps
+  (``graph_replays``) and the graphs it captured (``graph_captures``).
+  Only an eager step enters the pair lane's ``step.*`` spans; a replay
+  enters ``step`` alone.
 
 The trace keeps no per-batch record and no reference to a batch.  Its
 summary (`StreamTrace.summary`, a JSON-able dict) lands on
@@ -46,6 +51,7 @@ summary (`StreamTrace.summary`, a JSON-able dict) lands on
 from __future__ import annotations
 
 import collections
+import contextlib
 import contextvars
 from time import time_ns
 
@@ -101,6 +107,17 @@ def recent() -> list[dict]:
     """The summaries of this process's last `RECENT` streams that
     returned, newest last."""
     return list(_RECENT)
+
+
+@contextlib.contextmanager
+def no_stream():
+    """Within the block no stream is active, so `span` does nothing: a
+    graph's capture records a step and runs none."""
+    token = _ACTIVE.set(None)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
 
 
 class _NoSpan:
@@ -299,11 +316,12 @@ class StreamTrace:
     ``stream`` span and, once the block returns, sets ``summary`` and
     appends it to `recent`.  The stream loop sets ``batch``, the index its
     spans carry, and adds to the counters (`Mapper._stream` to
-    ``pseudo_pairs``)."""
+    ``pseudo_pairs``, ``graph_replays`` and ``graph_captures``)."""
 
     __slots__ = ("device", "spans", "batch", "profiled", "batches", "items",
-                 "pseudo_pairs", "h2d_bytes", "staged_bytes", "markers",
-                 "summary", "_launches", "_lanes", "_token")
+                 "pseudo_pairs", "graph_replays", "graph_captures",
+                 "h2d_bytes", "staged_bytes", "markers", "summary",
+                 "_launches", "_lanes", "_token")
 
     def __init__(self, device: torch.device):
         if device.type == "cuda" and device.index is None:
@@ -313,6 +331,7 @@ class StreamTrace:
         self.batch = 0
         self.profiled = False
         self.batches = self.items = self.pseudo_pairs = 0
+        self.graph_replays = self.graph_captures = 0
         self.h2d_bytes = self.staged_bytes = 0
         self.markers = None
         self.summary: dict | None = None
@@ -391,6 +410,8 @@ class StreamTrace:
             "start_ns": self.spans["stream"].t0,
             "batches": self.batches, "items": self.items,
             "pseudo_pairs": self.pseudo_pairs,
+            "graph_replays": self.graph_replays,
+            "graph_captures": self.graph_captures,
             "h2d_bytes": self.h2d_bytes, "staged_bytes": self.staged_bytes,
             "launches": launches,
             "light_lanes": _lane_launches() - self._lanes,

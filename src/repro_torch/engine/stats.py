@@ -40,10 +40,15 @@ def init_stage_totals(device, keys: tuple) -> torch.Tensor:
     return torch.zeros(len(keys), dtype=torch.int64, device=device)
 
 
+def stage_count_vector(counts: dict, keys: tuple) -> torch.Tensor:
+    """A batch's stage counts as one (len(keys),) int64 device vector."""
+    return torch.stack([counts[k] for k in keys])
+
+
 def add_stage_counts(totals: torch.Tensor, counts: dict,
                      keys: tuple) -> None:
     """totals += counts, on the device, without a host sync."""
-    totals += torch.stack([counts[k] for k in keys])
+    totals += stage_count_vector(counts, keys)
 
 
 def fetch_stage_totals(totals: torch.Tensor, keys: tuple) -> dict:

@@ -1,9 +1,10 @@
 """The host loop behind ``Mapper.map_stream``.
 
 Each batch is padded to the stream shape on the host, copied to the
-device from pinned memory without blocking, and mapped with eager kernel
-launches on the current stream; the host goes on to pull and pad the next
-batch while the device works.  On CUDA the copies run on a stream of
+device from pinned memory without blocking, and mapped on the current
+stream (eager launches, or a replay of the step's CUDA graph,
+`engine.graph`); the host goes on to pull and pad the next batch while
+the device works.  On CUDA the copies run on a stream of
 their own into a ring of two device slots (`CopyRing`), and batch k+1's
 copies are enqueued before batch k's step, so they run on the copy
 engine while that step runs on the SMs.  Consumers see results one batch
@@ -126,9 +127,13 @@ class CopyRing:
     the consumer is handed holds the reads), copies the reads into the
     slot and records ``copied[k % 2]``; the compute stream waits on that
     before the step (`take`).  The host never waits.  A slot is made, on
-    the compute stream, at the first batch of its shape and dtype; making
-    one records ``released`` at once, after every step launched so far,
-    which covers the slot memory it may take over.
+    the compute stream, at the first batch of its shape and dtype, or
+    taken from ``owner`` where one is given (``owner.slot(s, host)``: the
+    device tensors of slot ``s`` for host tensors like ``host``, which
+    outlive the ring, so that every stream of a session copies into the
+    same memory).  Either records ``released`` at once, after every step
+    launched so far, which covers the slot memory a made slot may take
+    over and any step of an earlier stream still reading a taken one.
 
     ``events`` makes, records and waits on events by handle
     (`kernels._cuda.TimingEvents`); ``compute`` and ``copy`` are the
@@ -143,8 +148,9 @@ class CopyRing:
     SLOTS = 2
 
     def __init__(self, device: torch.device, events, compute, copy, use,
-                 outer=None):
+                 outer=None, owner=None):
         self.device, self.events, self.use = device, events, use
+        self.owner = owner
         self.compute, self.copy = compute, copy
         self.outer = compute if outer is None else outer
         self.h_compute, self.h_copy = compute.cuda_stream, copy.cuda_stream
@@ -155,7 +161,7 @@ class CopyRing:
         self.copies = self.taken = 0
 
     @classmethod
-    def on(cls, device: torch.device):
+    def on(cls, device: torch.device, owner=None):
         """A ring on ``device``'s current stream and a new copy stream, or
         None off CUDA."""
         if device.type != "cuda":
@@ -164,7 +170,7 @@ class CopyRing:
         compute = torch.cuda.current_stream(device)
         return cls(compute.device, _cuda.TimingEvents(), compute,
                    torch.cuda.Stream(compute.device), torch.cuda.set_stream,
-                   torch.cuda.current_stream())
+                   torch.cuda.current_stream(), owner)
 
     def put(self, host, trace) -> None:
         """Enqueue the next batch's copies from the host tensors ``host``
@@ -176,9 +182,10 @@ class CopyRing:
         slot = self.slots[s]
         if slot is None or any(d.shape != h.shape or d.dtype != h.dtype
                                for d, h in zip(slot, host)):
-            slot = self.slots[s] = [
-                torch.empty(h.shape, dtype=h.dtype, device=self.device)
-                for h in host]
+            slot = self.slots[s] = (
+                [torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                 for h in host]
+                if self.owner is None else self.owner.slot(s, host))
             ev.record(self.released[s], self.h_compute)
         ev.wait(self.h_copy, self.released[s])
         self.use(self.copy)
@@ -210,9 +217,10 @@ class CopyRing:
                            self.h_compute)
 
     def close(self) -> None:
-        """Free the slots and the events.  The compute stream first waits
-        for the last copies, so the slots' memory returns to its pool
-        only after them (a no-op after the stream's final sync)."""
+        """Free the slots (those it made) and the events.  The compute
+        stream first waits for the last copies, so the slots' memory
+        returns to its pool, or to the next stream, only after them (a
+        no-op after the stream's final sync)."""
         for ev in self.copied:
             self.events.wait(self.h_compute, ev)
         self.use(self.outer)
@@ -223,11 +231,11 @@ class CopyRing:
 
 def run_stream(dispatch, batches, trace, device: torch.device, *,
                stream_batch=None, on_result=None, drain=None,
-               n_arrays: int = 2):
+               n_arrays: int = 2, slots=None):
     """Drive ``dispatch(*reads, n, aux) -> result`` over host batches of
     ``n_arrays`` read arrays each, the reads already copied to ``device``
-    (on CUDA into a `CopyRing` slot, which ``dispatch`` reads on the
-    compute stream and must not hand on).
+    (on CUDA into a `CopyRing` slot, taken from ``slots`` where given,
+    which ``dispatch`` reads on the compute stream and must not hand on).
 
     The first batch fixes the stream shape unless ``stream_batch`` pins
     it.  On CUDA batch k + 1 is pulled and its copies enqueued before
@@ -270,7 +278,7 @@ def run_stream(dispatch, batches, trace, device: torch.device, *,
         return n, aux, host
 
     prev = None
-    ring = CopyRing.on(device)
+    ring = CopyRing.on(device, slots)
     try:
         cur = pull(0)
         if ring is not None:

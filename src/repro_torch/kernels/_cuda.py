@@ -261,6 +261,38 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+@contextlib.contextmanager
+def recorded_launches(out: dict):
+    """Within the block launches are recorded, not counted: a CUDA graph's
+    capture enqueues no work.  On exit every kernel's ``launches`` and
+    ``paths`` are as they were before the block, and ``out`` maps each
+    kernel that launched in it to ``(launches, {path: launches})``;
+    `count_launches` adds those each time a replay runs them."""
+    before = {name: (k.launches, dict(k.paths))
+              for name, k in KERNELS.items()}
+    try:
+        yield out
+    finally:
+        for name, k in KERNELS.items():
+            n0, p0 = before.get(name, (0, {}))
+            paths = {p: c - p0.get(p, 0) for p, c in k.paths.items()
+                     if c != p0.get(p, 0)}
+            if k.launches != n0 or paths:
+                out[name] = (k.launches - n0, paths)
+            k.launches, k.paths = n0, p0
+
+
+def count_launches(recorded: dict) -> None:
+    """Add a recorded block's launches (`recorded_launches`) to each
+    kernel's counts, as its launches would have: a graph replay launches
+    them without a call."""
+    for name, (n, paths) in recorded.items():
+        k = KERNELS[name]
+        k.launches += n
+        for p, c in paths.items():
+            k.paths[p] = k.paths.get(p, 0) + c
+
+
 class TimingEvents:
     """The library's events (``csrc/markers.cu``) as plain calls: an event
     is an integer handle, made on a device and freed with `destroy`; a

@@ -66,6 +66,8 @@ def test_every_span_once_a_batch_and_exact_counters(world):
     assert tr["profiled"] is False and tr["markers"] is None
     assert (tr["batches"], tr["items"]) == (n, 3 * B + 7)
     assert tr["pseudo_pairs"] == 0
+    # no graph on the CPU: every step eager
+    assert (tr["graph_replays"], tr["graph_captures"]) == (0, 0)
     # the reads' bytes, the ragged tail padded to the stream shape
     assert tr["h2d_bytes"] == 2 * B * R * n
     assert tr["staged_bytes"] == 0          # nothing is pinned on the CPU
@@ -367,6 +369,39 @@ def test_readers_take_the_measured_window(monkeypatch, traced_batches):
     assert [readers[k].read(run) for k in MARKERS] == [None] * len(MARKERS)
     recent[1] = _summary(False, 499, 10.0)
     assert [readers[k].read(run) for k in MARKERS] == [None] * len(MARKERS)
+
+
+def test_step_graph_pct_reads_the_windows_replays(monkeypatch, world):
+    """`step_graph_pct`: 100 x replays / batches of the untraced window's
+    stream (not the traced one, nor the warm-up); None off the card, for
+    a program without the counter and on the long lane."""
+    reader, = (m.reader for m in
+               manifest.find_cell("pe150-775m.illumina").per_layer
+               if m.name == "step_graph_pct")
+    ref, sim = world
+    sr = _mapper(ref).map_stream(iter(_batches(sim, 2)))
+    assert sr.trace["graph_replays"] == 0
+    assert reader.read({"window": {"batches": sr.n_batches}}) is None
+
+    def summary(profiled, batches, replays, pseudo_pairs=0):
+        return {"profiled": profiled, "batches": batches,
+                "pseudo_pairs": pseudo_pairs, "graph_replays": replays,
+                "markers": {"batches": 0}}
+
+    recent = [summary(False, 8, 6), summary(False, 400, 399),
+              summary(True, 400, 400)]
+    monkeypatch.setattr(spans, "recent", lambda: list(recent))
+    run = {"window": {"batches": 400}}
+    assert reader.read(run) == pytest.approx(99.75)
+    recent[1]["graph_replays"] = 0
+    assert reader.read(run) == 0.0
+    recent[1]["markers"] = None
+    assert reader.read(run) is None
+    recent[1] = summary(False, 400, 0, pseudo_pairs=12_800)
+    assert reader.read(run) is None
+    del recent[1]["graph_replays"]
+    recent[1]["pseudo_pairs"] = 0
+    assert reader.read(run) is None
 
 
 def test_the_cpu_run_reports_no_marker_metric():

@@ -28,8 +28,9 @@ from repro_torch.core.simulate import (
     simulate_long_reads,
     simulate_pairs,
 )
-from repro_torch.engine import ExecutionConfig, Mapper, spans, stream
+from repro_torch.engine import ExecutionConfig, Mapper, graph, spans, stream
 from repro_torch.engine.stream import pad_tail
+from repro_torch.kernels import _cuda
 
 COMPUTE = types.SimpleNamespace(cuda_stream=1)
 COPY = types.SimpleNamespace(cuda_stream=2)
@@ -69,8 +70,8 @@ def _scripted_ring(monkeypatch):
     `_Card`; returns the card and the list of rings made."""
     card, made = _Card(), []
 
-    def on(cls, device):
-        made.append(cls(device, card, COMPUTE, COPY, card.use))
+    def on(cls, device, owner=None):
+        made.append(cls(device, card, COMPUTE, COPY, card.use, owner=owner))
         return made[-1]
 
     monkeypatch.setattr(stream.CopyRing, "on", classmethod(on))
@@ -267,6 +268,101 @@ def test_mapper_stream_through_a_ring_equals_the_plain_stream(
         _same(a, b, f"batch {i}")
 
 
+class _ScriptedGraph:
+    """`engine.graph.StepGraph` on the CPU: the capture runs the step once
+    with its launches recorded and no stream active, as the card's capture
+    records it, and each replay runs it again on what the slot holds then
+    (no span entered), packed and copied out as a replay's result is."""
+
+    def __init__(self, body, pool):
+        self.body = body
+        self.launches = {}
+        with spans.no_stream(), _cuda.recorded_launches(self.launches):
+            body()
+
+    def replay(self):
+        with spans.no_stream():
+            res, counts = self.body()
+        flat, layout = graph.pack(res)
+        _cuda.count_launches(self.launches)
+        return graph.unpack(type(res), flat.clone(), layout), counts
+
+
+def test_a_full_batch_replays_its_slots_graph(monkeypatch, small_world):
+    """A session with step graphs, on the CPU through a scripted ring and
+    scripted graphs: the first full batch of each slot runs eagerly and
+    captures the slot's graph, every later full batch replays it, the
+    ragged tail runs eagerly; a second stream replays every full batch.
+    Each kept result equals the stream without graphs, lies in memory of
+    its own (neither a slot's nor another result's) and the stage totals
+    are the same."""
+    mapper, sim, _ = small_world
+    batches = [(sim.reads1[k:k + 32], sim.reads2[k:k + 32])
+               for k in range(0, 72, 12)] + [(sim.reads1[:7],
+                                               sim.reads2[:7])]
+
+    def stream_of(kept):
+        return mapper.map_stream(
+            iter(batches), on_result=lambda i, r, n: kept.append((i, r)))
+
+    plain: list = []
+    want = stream_of(plain)
+    graphs = graph.StepGraphs(CPU)
+    graphs.pool = "pool"
+    monkeypatch.setattr(mapper, "_graphs", graphs)
+    monkeypatch.setattr(graph, "StepGraph", _ScriptedGraph)
+    card, rings = _scripted_ring(monkeypatch)
+    for n_rings, captures, eager in ((1, 2, 3), (2, 0, 1)):
+        kept: list = []
+        got = stream_of(kept)
+        tr = got.trace
+        assert got.totals == want.totals
+        assert (tr["batches"], tr["graph_captures"]) == (7, captures)
+        assert tr["graph_replays"] == 6 - captures
+        assert tr["spans"]["step"]["count"] == 7
+        assert tr["spans"]["step.front"]["count"] == eager
+        assert all(g is not None for g in graphs.graphs)
+        owned = {t.untyped_storage().data_ptr()
+                 for slot in graphs.slots for t in slot}
+        assert len(rings) == n_rings and rings[-1].owner is graphs
+        seen = set()
+        for (i, a), (_, b) in zip(kept, plain):
+            _same(a, b, f"batch {i}")
+            ptrs = {getattr(a, f).untyped_storage().data_ptr()
+                    for f in a._fields}
+            assert not ptrs & (owned | seen), f"batch {i}"
+            seen |= ptrs
+
+
+def test_a_recorded_launch_counts_at_each_replay(monkeypatch):
+    """`_cuda.recorded_launches` leaves every kernel's counts as they were
+    and returns what the block launched, by path; `count_launches` adds
+    that, once a replay."""
+    def probe(name, *args):
+        return 0
+
+    lib = types.SimpleNamespace(probe_a=probe, probe_b=probe)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
+    a = _cuda.Kernel("probe_a", "probe_a", (_cuda.PTR,), lambda: None)
+    b = _cuda.Kernel("probe_b", "probe_b", (_cuda.PTR,), lambda: None)
+    monkeypatch.setitem(_cuda.KERNELS, "probe_a", a)
+    x = torch.zeros(4)
+    a(x, stream=x, work=(), path="lanes")
+    out: dict = {}
+    with _cuda.recorded_launches(out):
+        monkeypatch.setitem(_cuda.KERNELS, "probe_b", b)   # registered late
+        for path in ("lanes", "lanes", None):
+            a(x, stream=x, work=(), path=path)
+        b(x, stream=x, work=())
+    assert (a.launches, a.paths, b.launches, b.paths) == (1, {"lanes": 1},
+                                                          0, {})
+    assert out == {"probe_a": (3, {"lanes": 2}), "probe_b": (1, {})}
+    for _ in range(2):
+        _cuda.count_launches(out)
+    assert (a.launches, a.paths, b.launches) == (7, {"lanes": 5}, 2)
+
+
 # ---------------------------------------------------------------- card --
 @pytest.fixture(scope="module")
 def dev():
@@ -347,3 +443,63 @@ def test_map_long_stream_on_the_card_equals_map_long(dev):
         for k, v in long_stage_stat_counts(want).items():
             want_totals[k] += int(v)
     assert sr.totals == want_totals
+
+
+@pytest.mark.cuda
+def test_map_stream_replays_a_graph_a_slot_on_the_card(dev, tmp_path):
+    """Eight distinct full batches of 65,536 pairs and a ragged tail of
+    777, every result kept until the stream ends: the first full batch of
+    each slot runs eagerly and captures the slot's graph, the six after
+    it replay, the tail runs eagerly.  Each result equals `Mapper.map` of
+    the same (padded) batch bit for bit (a result that viewed the graph's
+    memory would hold a later batch's), and the stage totals, launches
+    and lane launches equal an eager stream's.  A second stream replays
+    every full batch; after a swap to another index of the same shape the
+    graphs are captured again and the results are the new index's."""
+    B = 65_536
+    ref = random_reference(2_000_000, np.random.default_rng(41))
+    sim = simulate_pairs(ref, 16_384, ReadSimConfig(sub_rate=0.01), seed=42)
+    rng = np.random.default_rng(43)
+    batches = []
+    for _ in range(8):
+        rows = rng.integers(0, 16_384, B)
+        batches.append((sim.reads1[rows], sim.reads2[rows]))
+    batches.append(tuple(r[:777] for r in batches[5][::-1]))
+    batches = [_pinned(b) for b in batches]
+    cfg = ExecutionConfig(device="cuda", stream_batch=B)
+    mapper = Mapper.build(ref, SeedMapConfig(table_bits=20),
+                          PipelineConfig(), cfg)
+    graphs = mapper._graphs
+    assert graphs is not None
+    mapper._graphs = None
+    eager = mapper.map_stream(iter(batches)).trace
+    assert (eager["graph_captures"], eager["graph_replays"]) == (0, 0)
+    mapper._graphs = graphs
+
+    def check(session, captures):
+        sr, kept = _kept_stream(mapper.map_stream, batches)
+        tr = sr.trace
+        assert (tr["graph_captures"], tr["graph_replays"]) == (
+            captures, 8 - captures)
+        assert tr["launches"] == eager["launches"]
+        assert tr["light_lanes"] == eager["light_lanes"] > 0
+        want_totals = dict.fromkeys(sr.totals, 0)
+        for (i, res, n), (r1, r2) in zip(kept, batches):
+            assert n == r1.shape[0]
+            want = session.map(pad_tail(r1, B), pad_tail(r2, B))
+            want = want._replace(n_valid=torch.arange(B, device=dev) < n)
+            _same(res, want, f"batch {i}")
+            for k, v in stage_stat_counts(want).items():
+                want_totals[k] += int(v)
+        assert sr.totals == want_totals
+        return sr.totals
+
+    totals = check(mapper, 2)
+    assert check(mapper, 0) == totals
+    other = random_reference(2_000_000, np.random.default_rng(44))
+    fresh = Mapper.build(other, SeedMapConfig(table_bits=20),
+                         PipelineConfig(), cfg)
+    fresh.save(tmp_path / "other")
+    assert mapper.swap_index(tmp_path / "other") == "reused"
+    assert graphs.graphs == [None, None]
+    check(fresh, 2)
